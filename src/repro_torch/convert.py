@@ -1,0 +1,34 @@
+"""Move JAX-side state into the port: same keys, shapes and dtypes.
+
+The port keeps the JAX package's layouts ((in, out) matrices, stacked
+``blocks`` with a leading L axis, a (L, B, T, K, hd) cache), so nothing
+is transposed. Inputs are numpy arrays (``np.asarray`` of the JAX
+arrays); bfloat16 arrives as numpy's ml_dtypes bfloat16 and is moved
+bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """A copy of ``a`` on ``device`` (never a view of JAX's read-only buffer)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """A params tree of numpy arrays -> the same tree of tensors on ``device``."""
+    return {k: params_from_jax(v, device) if isinstance(v, dict)
+            else tensor_from_numpy(v, device) for k, v in tree.items()}
+
+
+def cache_from_jax(cache: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """A KV cache of numpy arrays -> tensors on ``device``, ``pos`` a host int."""
+    return {k: int(np.asarray(v)) if k == "pos" else tensor_from_numpy(v, device)
+            for k, v in cache.items()}

@@ -1,0 +1,83 @@
+"""K1 flash attention forward: the launcher of the Hopper kernel.
+
+The kernel, ``csrc/flash_attention.cu``, replaces the JAX package's
+Pallas kernel ``repro/kernels/flash_attention.py::_kernel``; its note
+gives the design and the bound. This module checks the inputs, allocates
+the output and launches it on PyTorch's current stream. It takes CUDA
+tensors only; ``ops.attention`` sends a CPU tensor to the plain version,
+``ref.attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.cache
+def _launcher():
+    lib = _build.load("flash_attention")
+    fn = lib.k1_flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.k1_error_string.argtypes = [ctypes.c_int]
+    lib.k1_error_string.restype = ctypes.c_char_p
+    return fn, lib.k1_error_string
+
+
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ValueError unless the kernel takes these tensors."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"K1 takes CUDA tensors; {name} is on {t.device}")
+        if t.dtype not in DTYPES:
+            raise ValueError(f"K1 takes float32 or bfloat16; {name} is {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"K1 takes (B, S, H, hd) tensors; {name} has shape "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"K1 takes contiguous tensors; {name} is not")
+        if t.data_ptr() % 16:
+            raise ValueError(f"K1 takes 16-byte aligned tensors; {name} is not")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"K1 takes one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("K1 takes q, k and v on one device")
+    B, S, H, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"K1 takes head_dim in {HEAD_DIMS}; got {hd}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, hd):
+        raise ValueError(f"K1 shapes disagree: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if min(B, S, H, k.shape[1]) == 0:
+        raise ValueError(f"K1 takes non-empty tensors; q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, hd), k/v: (B, T, H, hd) full-H form -> (B, S, H, hd).
+
+    Launches K1 on the current stream and returns without synchronising.
+    Raises if the inputs are not ones the kernel takes, if the kernel
+    cannot be built, or if the launch is refused.
+    """
+    _check_inputs(q, k, v)
+    fn, error_string = _launcher()
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, k.shape[1], H, hd, int(q.dtype == torch.bfloat16),
+                int(causal), stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {rc} "
+                           f"({error_string(rc).decode()})")
+    return out

@@ -1,0 +1,135 @@
+"""Shared neural-net layers (plain functions over tensors and param dicts)."""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Run-time configuration threaded through model code.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class RunConfig:
+    """How to *run* a model (orthogonal to ArchConfig = what the model is).
+
+    The JAX RunConfig's sharding, remat and attention-dispatch knobs have
+    no counterpart yet: the port runs on one card, and its full-H
+    attention always goes through ``kernels.ops.attention``.
+    """
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    device: str = "cuda"
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing a CUDA request when there is no card.
+
+    The port never carries on silently on the CPU: the caller asks for
+    it with ``device="cpu"``.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Initializers (same distributions as the JAX package; jax.random's bits
+# cannot be reproduced, so parity tests share weights via convert.py)
+# ---------------------------------------------------------------------------
+def dense_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
+               device, scale: float = 1.0) -> torch.Tensor:
+    """Truncated-normal fan-in initializer (what most LMs ship with).
+
+    ``gen=None`` is allowed only on the meta device (shape-only init).
+    """
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale / math.sqrt(fan_in)
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+def embed_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
+               device) -> torch.Tensor:
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    w.normal_(0.0, 0.02, generator=gen)
+    return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
+    """RMSNorm in f32, cast back to input dtype; scale is (1 + g)."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):
+    """x @ w with w stored (in, out), as in the JAX package."""
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def swiglu(x, w1, w3, w2):
+    """SwiGLU MLP: w2( silu(x w1) * (x w3) )."""
+    return linear(F.silu(linear(x, w1)) * linear(x, w3), w2)
+
+
+def geglu(x, w1, w3, w2):
+    """GeGLU MLP (gemma): w2( gelu(x w1) * (x w3) ), tanh-approximated gelu."""
+    return linear(F.gelu(linear(x, w1), approximate="tanh") * linear(x, w3), w2)
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device):
+    return {
+        "w1": dense_init(gen, (d_model, d_ff), dtype, device),
+        "w3": dense_init(gen, (d_model, d_ff), dtype, device),
+        "w2": dense_init(gen, (d_ff, d_model), dtype, device),
+    }
+
+
+def apply_mlp(params, x, gelu: bool = False):
+    fn = geglu if gelu else swiglu
+    return fn(x, params["w1"], params["w3"], params["w2"])
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)          # (head_dim//2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S).
+
+    Split-halves convention (not interleaved), computed in f32.
+    """
+    head_dim = x.shape[-1]
+    freqs = rope_freqs(head_dim, theta, device=x.device)        # (hd/2,)
+    angles = positions[..., None].float() * freqs               # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,59 @@
+"""Public model API: ArchConfig -> init / apply / prefill / decode callables."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.layers import RunConfig, resolve_device
+
+
+class Model:
+    """Thin functional bundle for one architecture.
+
+    Runs on ``rc.device`` (``cuda`` unless the caller asks for ``cpu``);
+    building it raises when a CUDA device is asked for and there is none.
+    """
+
+    def __init__(self, cfg, rc: Optional[RunConfig] = None):
+        self.cfg = cfg
+        self.rc = rc or RunConfig()
+        resolve_device(self.rc.device)
+
+    # -- parameters -----------------------------------------------------
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random params from ``gen``, a generator on ``rc.device``."""
+        return transformer.init_params(self.cfg, gen, self.rc)
+
+    def init_eval_shape(self) -> Dict[str, Any]:
+        """The params tree as meta tensors: shapes and dtypes, no storage."""
+        return transformer.init_params(self.cfg, None, self.rc.replace(device="meta"))
+
+    # -- forward ----------------------------------------------------------
+    def apply(self, params, batch, return_cache: bool = False,
+              last_only: bool = False):
+        return transformer.forward(params, self.cfg, self.rc, tokens=batch["tokens"],
+                                   return_cache=return_cache, last_only=last_only)
+
+    # -- serving ----------------------------------------------------------
+    def prefill(self, params, batch):
+        logits, _, cache = self.apply(params, batch, return_cache=True,
+                                      last_only=True)
+        return logits, cache
+
+    def decode(self, params, cache, batch):
+        """One token against ``cache``; writes the cache in place."""
+        return transformer.decode_step(params, self.cfg, self.rc, cache,
+                                       batch["tokens"])
+
+    def init_cache(self, batch: int, max_len: int):
+        return transformer.init_cache(self.cfg, self.rc, batch, max_len)
+
+    def init_cache_eval_shape(self, batch: int, max_len: int):
+        return transformer.init_cache(self.cfg, self.rc.replace(device="meta"),
+                                      batch, max_len)
+
+
+def build(cfg, rc: Optional[RunConfig] = None) -> Model:
+    return Model(cfg, rc)

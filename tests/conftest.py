@@ -12,6 +12,11 @@ if SRC not in sys.path:
     sys.path.insert(0, SRC)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (run with -m cuda)")
+
+
 @pytest.fixture(scope="session")
 def paper_numbers():
     return {
