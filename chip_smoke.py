@@ -13,14 +13,23 @@ Phases; any failure exits non-zero and prints no result line:
    bf16 and f32), at a ragged S and at head_dim 32 and 128. Timed with
    CUDA events beside the plain version, PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it) and the bound.
-3. Serve: full-width qwen2-0.5b in bf16 with seeded random weights,
-   built through ``runtime.serve``, answers 8 requests of 512-token
-   prompts: one prefill, then 64 greedy decode steps. K1 must launch
-   once per layer in the prefill.
-4. Consistency at full width in f32 with TF32 off: prefill logits with
-   K1 against the same prefill with the plain attention, and
-   prefill(tokens[:k]) + decode(tokens[k:]) against forward(tokens).
+   calls it) and the bound. K2 (the SSD scan) against ``ref.ssd_ref``
+   (f32 2e-3, bf16 5e-2) and, in f32, ``models.ssm.ssd_chunked`` (2e-4),
+   y and final state, at the serving shape of mamba2-2.7b (B=8, S=512,
+   H=80, P=64, N=128, chunk 128), at chunks 96, 12 and 1, at (P, N) =
+   (64, 64), (16, 16) and the JAX kernel tests' shapes, with bf16 x and
+   f32 B/C, and with an initial state. Timed beside both plain versions
+   and the bound (no single PyTorch call computes it).
+3. Serve: full-width qwen2-0.5b, then full-width mamba2-2.7b, in bf16
+   with seeded random weights, built through ``runtime.serve``, each
+   answering 8 requests of 512-token prompts: one prefill, then greedy
+   decode steps (64 each). K1 must launch once per layer in the qwen2
+   prefill and K2 once per layer in the mamba2 prefill, and neither
+   anywhere else.
+4. Consistency at full width in f32 with TF32 off, for each model:
+   prefill logits with the kernels against the same prefill with their
+   plain versions, and prefill(tokens[:k]) + decode(tokens[k:]) against
+   forward(tokens).
 5. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -42,9 +51,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
 ARCH = "qwen2-0.5b"
+SSM_ARCH = "mamba2-2.7b"
 SERVE_BATCH, PROMPT_LEN, DECODE_STEPS = 8, 512, 64
 K1_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-PREFILL_PLAIN_TOL = 1e-3          # f32 prefill logits, K1 vs plain attention
+K2_REF_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # K2 vs ssd_ref (the JAX kernel test's)
+K2_CHUNKED_TOL = 2e-4             # f32 K2 vs ssd_chunked (the JAX production-path test's)
+PREFILL_PLAIN_TOL = 1e-3          # f32 prefill logits, kernels vs their plain versions
 DECODE_TOL = 2e-3                 # f32 prefill + decode vs forward
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
@@ -156,11 +168,136 @@ def check_k1(gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K2 bound and check
+# ---------------------------------------------------------------------------
+def ssd_bound(b, s, h, p, n, chunk, x_dtype, bc_dtype, init_state=False):
+    """(bound_ms, bound_by): the least time for one K2 call on an H100.
+
+    Bytes: x, dt, A, B, C (and the initial state) read once, y and the
+    final state written once. Operations: 2 FLOPs per multiply-add of
+    C.B^T over each chunk's causal (i, j) pairs (once per batch row and
+    chunk: B and C have no head axis), and per batch row, head and chunk
+    of the intra-chunk term over the same pairs and P, and of the
+    carried-state output term and the state update (c * N * P each). The
+    peak is bf16's when x, B and C are all bf16, else f32's.
+    """
+    import torch
+    isz = {torch.float32: 4, torch.bfloat16: 2}
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    nbytes = (2 * b * s * h * p * isz[x_dtype] + b * s * h * 4 + h * 4
+              + 2 * b * s * n * isz[bc_dtype] + (2 if init_state else 1) * b * h * p * n * 4)
+    flops = 2 * b * nc * (pairs * n + h * (pairs * p + 2 * chunk * n * p))
+    peak_type = "bfloat16" if x_dtype == bc_dtype == torch.bfloat16 else "float32"
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOP_PER_S[peak_type]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_inputs(gen, b, s, h, p, n, x_dtype, bc_dtype, init_state=False):
+    """The JAX kernel tests' distributions: x ~ N(0, 1), dt = softplus(N(0, 1)),
+    A = -exp(0.3 N(0, 1)), B, C ~ 0.5 N(0, 1); state ~ 0.5 N(0, 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(b, s, h, p).to(x_dtype)
+    dt = F.softplus(randn(b, s, h))
+    A = -torch.exp(randn(h) * 0.3)
+    B = (randn(b, s, n) * 0.5).to(bc_dtype)
+    C = (randn(b, s, n) * 0.5).to(bc_dtype)
+    st = randn(b, h, p, n) * 0.5 if init_state else None
+    return x, dt, A, B, C, st
+
+
+def _k2_err(name, got, expect, tol) -> float:
+    diff = (got.float() - expect.float()).abs()
+    ok = bool((diff <= tol + tol * expect.float().abs()).all())
+    err = float(diff.max())
+    print(f"    {name}: max_abs_err={err:.3e} (tol {tol:g}, max |plain| "
+          f"{float(expect.float().abs().max()):.3g}) {'ok' if ok else 'FAIL'}", flush=True)
+    _check(ok, f"K2 disagrees with its plain version ({name}): max_abs_err={err}")
+    return err
+
+
+def check_k2(gen) -> dict:
+    """Hold K2 against both plain versions on the card; time the serving shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.ssm import ssd_chunked
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # (b, s, h, p, n, chunk, x dtype, B/C dtype, init_state)
+        (8, 512, 80, 64, 128, 128, bf16, bf16, False),   # the serving prefill
+        (8, 512, 80, 64, 128, 128, f32, f32, False),
+        (2, 96, 8, 64, 128, 96, bf16, bf16, False),      # S=96 -> chunk 96
+        (2, 96, 8, 64, 128, 96, f32, f32, False),
+        (2, 24, 4, 16, 16, 12, f32, f32, False),         # S=24, reduced chunk 16 -> 12
+        (2, 24, 4, 16, 16, 12, bf16, bf16, False),
+        (1, 13, 2, 8, 16, 1, f32, f32, False),           # a prime S -> chunk 1
+        (2, 256, 16, 64, 64, 128, bf16, bf16, False),    # zamba2-1.2b's (P, N)
+        (2, 256, 16, 64, 64, 128, f32, f32, False),
+        (2, 64, 16, 16, 16, 16, f32, f32, False),        # the reduced configs
+        (1, 64, 2, 8, 16, 16, f32, f32, False),          # the JAX kernel tests' shapes
+        (2, 128, 4, 16, 32, 32, bf16, bf16, False),
+        (1, 128, 8, 32, 64, 64, f32, f32, False),
+        (2, 96, 2, 16, 16, 48, bf16, f32, False),        # bf16 x with f32 B/C
+        (2, 256, 8, 64, 128, 128, f32, f32, True),       # with an initial state
+        (2, 256, 8, 64, 128, 128, bf16, bf16, True),
+    ]
+    main, err_main = None, None
+    for case in cases:
+        b, s, h, p, n, chunk, xdt, bcdt, with_init = case
+        x, dt, A, B, C, st = ssd_inputs(gen, b, s, h, p, n, xdt, bcdt, with_init)
+        before = ops.ssd.launches
+        y, fin = ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=st)
+        _check(ops.ssd.launches == before + 1, "ops.ssd did not count its launch")
+        y_ref, fin_ref = ref.ssd_ref(x, dt, A, B, C, init_state=st)
+        torch.cuda.synchronize()
+        _check(y.shape == x.shape and y.dtype == x.dtype and fin.dtype == f32
+               and tuple(fin.shape) == (b, h, p, n),
+               f"K2 outputs {tuple(y.shape)} {y.dtype}, {tuple(fin.shape)} {fin.dtype}")
+        print(f"  K2 b={b} s={s} h={h} p={p} n={n} chunk={chunk} x {_dtype_name(xdt)} "
+              f"B/C {_dtype_name(bcdt)} init_state={with_init}:", flush=True)
+        tol = K2_REF_TOL[_dtype_name(xdt)]
+        err = max(_k2_err("y vs ssd_ref", y, y_ref, tol),
+                  _k2_err("state vs ssd_ref", fin, fin_ref, tol))
+        if xdt == bcdt == f32:
+            y_c, fin_c = ssd_chunked(x, dt, A, B, C, chunk, init_state=st)
+            _k2_err("y vs ssd_chunked", y, y_c, K2_CHUNKED_TOL)
+            _k2_err("state vs ssd_chunked", fin, fin_c, K2_CHUNKED_TOL)
+        if main is None:
+            main, err_main = (x, dt, A, B, C, case), err
+
+    x, dt, A, B, C, (b, s, h, p, n, chunk, xdt, bcdt, _) = main
+    ms = time_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk))
+    plain_ms = time_ms(lambda: ssd_chunked(x, dt, A, B, C, chunk), iters=10, warmup=2)
+    ref_ms = time_ms(lambda: ref.ssd_ref(x, dt, A, B, C), iters=3, warmup=1)
+    bound_ms, bound_by = ssd_bound(b, s, h, p, n, chunk, xdt, bcdt)
+    print(f"  K2 at the serving shape: {ms:.4f} ms, plain ssd_chunked {plain_ms:.4f} ms, "
+          f"ssd_ref {ref_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of the bound", flush=True)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:35",
+            "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms,
+            "plain_ref_ms": ref_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 def grow_cache(cache, extra: int):
-    """Room for ``extra`` more tokens along the cache's T axis."""
+    """Room for ``extra`` more tokens along a KV cache's T axis.
+
+    An SSM cache holds a fixed-size state and no k/v: it is returned as it is.
+    """
     import torch.nn.functional as F
+    if "k" not in cache:
+        return cache
     pad = (0, 0, 0, 0, 0, extra)            # (L, B, T, K, hd): pad T at its end
     return {**cache, "k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad)}
 
@@ -193,10 +330,16 @@ def make_prompts(cfg, batch, length, device):
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, length))).to(device)
 
 
+def _launches() -> dict:
+    from repro_torch.kernels import ops
+    return {"attention": ops.attention.launches, "ssd": ops.ssd.launches}
+
+
 def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -> dict:
     """Answer ``batch`` requests: one prefill, then greedy decode steps.
 
-    Returns the timings, the attention launches made by the timed run,
+    Returns the timings, the launches of each kernel ({"attention": n,
+    "ssd": m}) made by the timed prefill and by the whole timed request,
     and the generated tokens (B, 1 + decode_steps).
     """
     import torch
@@ -219,16 +362,16 @@ def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -
     _sync(device)
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    ops.attention.launches = 0
+    ops.attention.launches = ops.ssd.launches = 0
     t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": prompts})
     _sync(device)
     t1 = time.perf_counter()
-    prefill_launches = ops.attention.launches
+    prefill_launches = _launches()
     gen, logits, cache = greedy_decode(decode, params, logits, cache, decode_steps)
     _sync(device)
     t2 = time.perf_counter()
-    launches = ops.attention.launches
+    launches = _launches()
     _check(tuple(gen.shape) == (batch, 1 + decode_steps), f"tokens {tuple(gen.shape)}")
     _check(bool(((gen >= 0) & (gen < cfg.vocab_padded)).all()), "token out of range")
     _check(bool(torch.isfinite(logits.float()).all()), "non-finite decode logits")
@@ -248,20 +391,25 @@ def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Route the model's full-H attention to the plain version for a comparison."""
+def plain_kernels():
+    """Route both ``ops`` entries (full-H attention, SSD scan) to their plain
+    versions, for a comparison only."""
     from repro_torch.kernels import ops, ref
-    kernel = ops.attention
+    from repro_torch.models.ssm import ssd_chunked
+    kernels = ops.attention, ops.ssd
     ops.attention = lambda q, k, v, *, causal=True: ref.attention_ref(q, k, v, causal=causal)
+    ops.ssd = lambda x, dt, A, B, C, *, chunk, init_state=None: ssd_chunked(
+        x, dt, A, B, C, chunk, init_state=init_state)
     try:
         yield
     finally:
-        ops.attention = kernel
+        ops.attention, ops.ssd = kernels
 
 
 def consistency(cfg, *, device: str, prefill_batch: int, prefill_len: int,
                 batch: int, seq_len: int, split: int) -> dict:
-    """f32 errors: K1 vs plain prefill logits; prefill + decode vs forward."""
+    """f32 errors: prefill logits with the kernels vs their plain versions;
+    prefill + decode vs forward."""
     import torch
     from repro_torch.models import RunConfig, build
 
@@ -271,9 +419,10 @@ def consistency(cfg, *, device: str, prefill_batch: int, prefill_len: int,
 
     tokens = make_prompts(cfg, prefill_batch, prefill_len, device)
     logits, _ = model.prefill(params, {"tokens": tokens})
-    with plain_attention():
+    with plain_kernels():
         logits_plain, _ = model.prefill(params, {"tokens": tokens})
     err_plain = float((logits - logits_plain).abs().max())
+    del logits, logits_plain
 
     tokens = make_prompts(cfg, batch, seq_len, device)
     full, _, _ = model.apply(params, {"tokens": tokens})
@@ -285,7 +434,7 @@ def consistency(cfg, *, device: str, prefill_batch: int, prefill_len: int,
         outs.append(step_logits)
     err_decode = float((torch.cat(outs, dim=1) - full[:, split:]).abs().max())
     _check(bool(torch.isfinite(full).all()), "non-finite forward logits")
-    return {"prefill_k1_vs_plain": err_plain, "prefill_decode_vs_forward": err_decode}
+    return {"prefill_kernels_vs_plain": err_plain, "prefill_decode_vs_forward": err_decode}
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +448,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
 
     # 1. device and build
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -315,38 +464,49 @@ def main() -> int:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    {res.name}: {line.strip()}")
 
-    # 2. K1 against its plain version, and its time
+    # 2. K1 and K2 against their plain versions, and their times
     print("[2] K1 against its plain version", flush=True)
     k1 = check_k1(torch.Generator(device="cuda").manual_seed(SEED))
+    print("[2] K2 against its plain versions", flush=True)
+    k2 = check_k2(torch.Generator(device="cuda").manual_seed(SEED))
 
-    # 3. serve full-width qwen2-0.5b
-    cfg = get_config(ARCH)
-    res = serve(cfg, device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
-                decode_steps=DECODE_STEPS)
-    print(f"[3] served {SERVE_BATCH} requests of {PROMPT_LEN} tokens + "
-          f"{DECODE_STEPS} decode steps: prefill {res['prefill_ms']:.3f} ms, "
-          f"decode {res['decode_ms_per_step']:.3f} ms/step, "
-          f"{res['tokens_per_s']:.1f} generated tokens/s, "
-          f"max_memory_allocated {res['max_memory_allocated']} B; K1 launches: "
-          f"prefill {res['prefill_launches']}, request {res['request_launches']}",
-          flush=True)
-    _check(res["prefill_launches"] == cfg.n_layers,
-           f"prefill launched K1 {res['prefill_launches']} times, not {cfg.n_layers}")
-    _check(res["request_launches"] == cfg.n_layers,
-           f"request launched K1 {res['request_launches']} times, not {cfg.n_layers}")
+    # 3 and 4, for each model: serve at full width in bf16, then f32 consistency
+    served = {}
+    for arch, kernel in ((ARCH, "attention"), (SSM_ARCH, "ssd")):
+        cfg = get_config(arch)
+        res = serve(cfg, device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+                    decode_steps=DECODE_STEPS)
+        print(f"[3] {arch}: served {SERVE_BATCH} requests of {PROMPT_LEN} tokens + "
+              f"{DECODE_STEPS} decode steps: prefill {res['prefill_ms']:.3f} ms, "
+              f"decode {res['decode_ms_per_step']:.3f} ms/step, "
+              f"{res['tokens_per_s']:.1f} generated tokens/s, "
+              f"max_memory_allocated {res['max_memory_allocated']} B; launches: "
+              f"prefill {res['prefill_launches']}, request {res['request_launches']}",
+              flush=True)
+        expect = {k: (cfg.n_layers if k == kernel else 0) for k in res["prefill_launches"]}
+        _check(res["prefill_launches"] == expect,
+               f"{arch} prefill launched {res['prefill_launches']}, not {expect}")
+        _check(res["request_launches"] == expect,
+               f"{arch} request launched {res['request_launches']}, not {expect}")
+        served[kernel] = res
+        del res
+        torch.cuda.empty_cache()             # the bf16 model is gone before [4]
 
-    # 4. f32 consistency at full width
-    errs = consistency(cfg, device="cuda", prefill_batch=SERVE_BATCH,
-                       prefill_len=PROMPT_LEN, batch=2, seq_len=96, split=32)
-    print(f"[4] f32 consistency: {json.dumps(errs)}", flush=True)
-    _check(errs["prefill_k1_vs_plain"] <= PREFILL_PLAIN_TOL,
-           f"prefill K1 vs plain {errs['prefill_k1_vs_plain']} > {PREFILL_PLAIN_TOL}")
-    _check(errs["prefill_decode_vs_forward"] <= DECODE_TOL,
-           f"prefill+decode vs forward {errs['prefill_decode_vs_forward']} > {DECODE_TOL}")
+        errs = consistency(cfg, device="cuda", prefill_batch=SERVE_BATCH,
+                           prefill_len=PROMPT_LEN, batch=2, seq_len=96, split=32)
+        print(f"[4] {arch}: f32 consistency: {json.dumps(errs)}", flush=True)
+        _check(errs["prefill_kernels_vs_plain"] <= PREFILL_PLAIN_TOL,
+               f"{arch} prefill kernels vs plain {errs['prefill_kernels_vs_plain']} "
+               f"> {PREFILL_PLAIN_TOL}")
+        _check(errs["prefill_decode_vs_forward"] <= DECODE_TOL,
+               f"{arch} prefill+decode vs forward {errs['prefill_decode_vs_forward']} "
+               f"> {DECODE_TOL}")
+        torch.cuda.empty_cache()
 
     # 5. results; the ok line is last
-    k1["launches"] = res["prefill_launches"]
-    print(json.dumps({"kernels": [k1]}))
+    k1["launches"] = served["attention"]["prefill_launches"]["attention"]
+    k2["launches"] = served["ssd"]["prefill_launches"]["ssd"]
+    print(json.dumps({"kernels": [k1, k2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

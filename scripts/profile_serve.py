@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving path goes, on one CUDA card.
 
-    python3 scripts/profile_serve.py
+    python3 scripts/profile_serve.py [--arch qwen2-0.5b|mamba2-2.7b]
 
-Builds full-width qwen2-0.5b in bf16 with seeded random weights and the
+Builds the full-width model (qwen2-0.5b unless ``--arch`` names another
+of the port's configs) in bf16 with seeded random weights and the
 prompts of ``chip_smoke.py`` phase 3 (8 x 512 tokens), warms up at the
 measured shapes, then traces one prefill and 8 greedy decode steps with
 ``torch.profiler``. For each window it prints the host time, the device
 busy time (the union of kernel intervals), the idle share, the kernel
 count, and the kernels with the most device time. The Chrome traces go
-to ``chiprun_out/profile_serve_{prefill,decode}.json``.
+to ``chiprun_out/profile_serve_<arch>_{prefill,decode}.json``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -39,7 +41,7 @@ def busy_us(events) -> float:
     return total
 
 
-def report(name, prof, host_ms, out_dir):
+def report(name, prof, host_ms, out_path):
     from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = busy_us(kernels) / 1e3
@@ -52,7 +54,7 @@ def report(name, prof, host_ms, out_dir):
                       "idle_share": 1.0 - busy_ms / host_ms, "kernels": len(kernels)}))
     for kname, (us, n) in top:
         print(f"    {us / 1e3:9.3f} ms  {n:5d}x  {kname[:110]}")
-    prof.export_chrome_trace(str(out_dir / f"profile_serve_{name}.json"))
+    prof.export_chrome_trace(str(out_path))
 
 
 DECODE_STEPS = 8
@@ -62,6 +64,9 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--arch", default="qwen2-0.5b")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
@@ -69,7 +74,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import RunConfig, build
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(args.arch)
     rc = RunConfig(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda")
     model = build(cfg, rc)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -93,14 +98,15 @@ def main() -> int:
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    print(f"device: {torch.cuda.get_device_name(0)}; B={B} prompt={P} decode steps={G}")
+    print(f"device: {torch.cuda.get_device_name(0)}; {args.arch} B={B} prompt={P} "
+          f"decode steps={G}")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         logits, cache = run_prefill()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    report("prefill", prof, host_ms, out_dir)
+    report("prefill", prof, host_ms, out_dir / f"profile_serve_{args.arch}_prefill.json")
     cache = grow_cache(cache, G)
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
@@ -108,7 +114,7 @@ def main() -> int:
         run_decode(logits, cache)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    report("decode", prof, host_ms, out_dir)
+    report("decode", prof, host_ms, out_dir / f"profile_serve_{args.arch}_decode.json")
 
     # the same windows without the profiler, for its overhead
     for _ in range(3):

@@ -1,10 +1,10 @@
 """Move JAX-side state into the port: same keys, shapes and dtypes.
 
 The port keeps the JAX package's layouts ((in, out) matrices, stacked
-``blocks`` with a leading L axis, a (L, B, T, K, hd) cache), so nothing
-is transposed. Inputs are numpy arrays (``np.asarray`` of the JAX
-arrays); bfloat16 arrives as numpy's ml_dtypes bfloat16 and is moved
-bit for bit.
+``blocks`` with a leading L axis, a (L, B, T, K, hd) cache, an SSM
+state stacked over L), so nothing is transposed. Inputs are numpy
+arrays (``np.asarray`` of the JAX arrays); bfloat16 arrives as numpy's
+ml_dtypes bfloat16 and is moved bit for bit.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.models.ssm import SSMState
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -29,6 +31,18 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
 
 
 def cache_from_jax(cache: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """A KV cache of numpy arrays -> tensors on ``device``, ``pos`` a host int."""
-    return {k: int(np.asarray(v)) if k == "pos" else tensor_from_numpy(v, device)
-            for k, v in cache.items()}
+    """A decode cache of numpy arrays -> tensors on ``device``, ``pos`` a host int.
+
+    A KV cache's ``k``/``v`` arrays move as they are. The JAX ``SSMState``
+    under ``ssm`` (a NamedTuple of four arrays) becomes the port's
+    ``SSMState``, field by field name.
+    """
+    def move(k, v):
+        if k == "pos":
+            return int(np.asarray(v))
+        if k == "ssm":
+            fields = v._asdict()
+            return SSMState(**{f: tensor_from_numpy(fields[f], device)
+                               for f in SSMState._fields})
+        return tensor_from_numpy(v, device)
+    return {k: move(k, v) for k, v in cache.items()}

@@ -10,10 +10,13 @@ path went through the kernel.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd_mod
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -32,3 +35,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 attention.launches = 0
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, *, chunk: int,
+        init_state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan -> (y (b,s,h,p) in x's dtype, final_state (b,h,p,n) f32).
+
+    CUDA: K2 (``csrc/ssd_scan.cu``). CPU: ``models.ssm.ssd_chunked``, the
+    JAX package's ``ops.ssd(impl="jnp")`` path.
+    """
+    if x.device.type == "cuda":
+        out = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+        ssd.launches += 1
+        return out
+    if x.device.type == "cpu":
+        from repro_torch.models.ssm import ssd_chunked   # models.ssm imports this module
+        return ssd_chunked(x, dt.float(), A, B, C, chunk, init_state=init_state)
+    raise ValueError(f"ssd runs on cuda or cpu tensors, not {x.device}")
+
+
+ssd.launches = 0

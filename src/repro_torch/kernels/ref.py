@@ -2,7 +2,8 @@
 
 The CPU tests hold these against the JAX package's ``kernels/ref.py``;
 ``chip_smoke.py`` holds each CUDA kernel against them on the card. They
-are intentionally the simplest formulations (O(S^2) attention).
+are intentionally the simplest formulations (O(S^2) attention, the
+step-by-step SSD recurrence).
 """
 from __future__ import annotations
 
@@ -25,3 +26,30 @@ def attention_ref(q, k, v, *, causal: bool = True):
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bthd->bshd", p, v.float()).to(v.dtype)
+
+
+def ssd_ref(x, dt, A, B, C, init_state=None):
+    """Sequential SSD recurrence (plain K2; the literal state-space definition).
+
+    x: (b, s, h, p)  dt: (b, s, h)  A: (h,)  B, C: (b, s, n)
+    Returns (y: (b, s, h, p) in x's dtype, final_state: (b, h, p, n) f32).
+
+      state_t = exp(dt_t * A) * state_{t-1} + dt_t * B_t (x) x_t
+      y_t     = C_t . state_t
+
+    The state starts at ``init_state`` (f32, (b, h, p, n)), or at zero
+    when it is None, as in the JAX package's oracle.
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    A = A.float()
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].float()                                      # (b, h)
+        dA = torch.exp(dtt * A)
+        dBx = torch.einsum("bh,bn,bhp->bhpn", dtt, B[:, t].float(), x[:, t].float())
+        state = dA[:, :, None, None] * state + dBx
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t].float(), state))
+    return torch.stack(ys, dim=1).to(x.dtype), state

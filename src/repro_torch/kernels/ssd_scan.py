@@ -1,0 +1,108 @@
+"""K2 Mamba2 chunked SSD scan: the launcher of the Hopper kernel.
+
+The kernel, ``csrc/ssd_scan.cu``, replaces the JAX package's Pallas
+kernel ``repro/kernels/ssd_scan.py::_kernel``; its note gives the design
+and the bound. This module checks the inputs, allocates the outputs and
+the C.B^T scratch, and launches it on PyTorch's current stream. It takes
+CUDA tensors only; ``ops.ssd`` sends a CPU tensor to the plain version,
+``models.ssm.ssd_chunked``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (8, 16, 32, 64)      # P
+MAX_CHUNK = 128                  # also the largest N
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.cache
+def _launcher():
+    lib = _build.load("ssd_scan")
+    fn = lib.k2_ssd_scan
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.k2_error_string.argtypes = [ctypes.c_int]
+    lib.k2_error_string.restype = ctypes.c_char_p
+    return fn, lib.k2_error_string
+
+
+def _check_tensor(name: str, t: torch.Tensor, dtypes, shape) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"K2 takes CUDA tensors; {name} is on {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"K2 takes {name} in {dtypes}; got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"K2 takes {name} of shape {tuple(shape)}; got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"K2 takes contiguous tensors; {name} is not")
+    if t.data_ptr() % 16:
+        raise ValueError(f"K2 takes 16-byte aligned tensors; {name} is not")
+
+
+def _check_inputs(x, dt, A, B, C, chunk, init_state) -> None:
+    """Raise ValueError unless the kernel takes these tensors and this chunk."""
+    if x.dim() != 4:
+        raise ValueError(f"K2 takes x of shape (b, s, h, p); got {tuple(x.shape)}")
+    b, s, h, p = x.shape
+    if min(b, s, h) == 0:
+        raise ValueError(f"K2 takes non-empty tensors; x {tuple(x.shape)}")
+    if p not in HEAD_DIMS:
+        raise ValueError(f"K2 takes head_dim p in {HEAD_DIMS}; got {p}")
+    if B.dim() != 3:
+        raise ValueError(f"K2 takes B of shape (b, s, n); got {tuple(B.shape)}")
+    n = B.shape[-1]
+    if n % 4 or not 4 <= n <= MAX_CHUNK:
+        raise ValueError(f"K2 takes a state size n that is a multiple of 4 in "
+                         f"[4, {MAX_CHUNK}]; got {n}")
+    if not isinstance(chunk, int) or not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"K2 takes a chunk in [1, {MAX_CHUNK}]; got {chunk}")
+    if s % chunk:
+        raise ValueError(f"K2 takes a chunk that divides s; {chunk} does not divide {s}")
+    _check_tensor("x", x, DTYPES, (b, s, h, p))
+    _check_tensor("dt", dt, (torch.float32,), (b, s, h))
+    _check_tensor("A", A, (torch.float32,), (h,))
+    _check_tensor("B", B, DTYPES, (b, s, n))
+    _check_tensor("C", C, (B.dtype,), (b, s, n))
+    if init_state is not None:
+        _check_tensor("init_state", init_state, (torch.float32,), (b, h, p, n))
+    devices = {t.device for t in (x, dt, A, B, C, init_state) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"K2 takes its tensors on one device; got {sorted(map(str, devices))}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, *, chunk: int,
+             init_state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD. x: (b, s, h, p), dt: (b, s, h) f32, A: (h,) f32,
+    B, C: (b, s, n), init_state: (b, h, p, n) f32 or None (zero).
+
+    Returns (y (b, s, h, p) in x's dtype, final_state (b, h, p, n) f32).
+    Launches K2 on the current stream and returns without synchronising.
+    Raises if the inputs are not ones the kernel takes, if the kernel
+    cannot be built, or if the launch is refused.
+    """
+    _check_inputs(x, dt, A, B, C, chunk, init_state)
+    fn, error_string = _launcher()
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    y = torch.empty_like(x)
+    final_state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    cb = torch.empty((b, s // chunk, chunk, chunk), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                None if init_state is None else init_state.data_ptr(),
+                cb.data_ptr(), y.data_ptr(), final_state.data_ptr(),
+                b, s, h, p, n, chunk, int(x.dtype == torch.bfloat16),
+                int(B.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: CUDA error {rc} "
+                           f"({error_string(rc).decode()})")
+    return y, final_state

@@ -18,13 +18,15 @@ class RunConfig:
     """How to *run* a model (orthogonal to ArchConfig = what the model is).
 
     The JAX RunConfig's sharding, remat and attention-dispatch knobs have
-    no counterpart yet: the port runs on one card, and its full-H
-    attention always goes through ``kernels.ops.attention``.
+    no counterpart yet: the port runs on one card, its full-H attention
+    always goes through ``kernels.ops.attention`` and its chunked SSD
+    scan through ``kernels.ops.ssd``.
     """
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     device: str = "cuda"
+    ssd_chunk: int = 0                 # SSD chunk override (0 = ArchConfig's)
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

@@ -1,0 +1,230 @@
+"""Mamba2 (SSD, state-space duality) blocks.
+
+The chunked SSD algorithm of arXiv:2405.21060 section 6:
+  * intra-chunk (quadratic-in-chunk "attention-like" term)
+  * chunk boundary states + inter-chunk linear recurrence
+  * O(1)-state single-token decode
+
+Projections are separate tensors (x, z, B, C, dt), as in the JAX
+package. A depthwise causal conv (width 4) precedes x/B/C; with
+n_groups = 1, B and C are shared across SSD heads.
+
+``apply_mamba`` sends every multi-token scan (prefill, and a chunk that
+continues a state) through ``kernels.ops.ssd``: kernel K2 on a CUDA
+tensor, ``ssd_chunked`` below on a CPU tensor. The single-token decode
+step, the conv and the projections stay plain PyTorch, as the JAX
+package computes them outside any Pallas kernel too.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import RunConfig, dense_init, rms_norm
+
+
+class SSMState(NamedTuple):
+    """Decode-time recurrent state for one Mamba2 layer (stackable)."""
+
+    ssd: torch.Tensor      # (B, H, P, N) f32
+    conv_x: torch.Tensor   # (B, W-1, d_inner)
+    conv_B: torch.Tensor   # (B, W-1, N)
+    conv_C: torch.Tensor   # (B, W-1, N)
+
+
+def init_mamba(gen, cfg, dtype, device):
+    """One layer's params with the JAX package's distributions."""
+    d, di, N, H, W = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
+                      cfg.ssm_n_heads, cfg.ssm_conv_width)
+    f32 = dict(dtype=torch.float32, device=device)
+    # dt bias initialised so softplus(dt_bias) spans [1e-3, 1e-1] (mamba2 default)
+    u = torch.empty((H,), **f32).uniform_(0.0, 1.0, generator=gen)
+    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))          # inverse softplus
+    conv_x = torch.empty((W, di), **f32).normal_(0.0, 1.0, generator=gen) * 0.1
+    return {
+        "in_x": dense_init(gen, (d, di), dtype, device),
+        "in_z": dense_init(gen, (d, di), dtype, device),
+        "in_B": dense_init(gen, (d, N), dtype, device),
+        "in_C": dense_init(gen, (d, N), dtype, device),
+        "in_dt": dense_init(gen, (d, H), dtype, device),
+        "conv_x": conv_x.to(dtype),
+        "conv_B": torch.full((W, N), 1.0 / W, dtype=dtype, device=device),
+        "conv_C": torch.full((W, N), 1.0 / W, dtype=dtype, device=device),
+        "A_log": torch.log(torch.arange(1, H + 1, **f32)),
+        "dt_bias": dt_bias,
+        "D_skip": torch.ones((H,), **f32),
+        "gate_norm": torch.zeros((di,), dtype=dtype, device=device),
+        "out": dense_init(gen, (di, d), dtype, device,
+                          scale=1.0 / (2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def causal_conv(x, w, tail=None):
+    """Depthwise causal conv. x: (B, S, C), w: (W, C), tail: (B, W-1, C) or None.
+
+    Returns (y, new_tail). W shifted adds in x's dtype, summed in the
+    JAX package's order ((t0 + t1) + t2) + t3, so bf16 rounds where it
+    rounds there. ``new_tail`` is a copy, not a view that would keep the
+    whole padded sequence alive.
+    """
+    W = w.shape[0]
+    if tail is None:
+        tail = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([tail, x], dim=1)                  # (B, S+W-1, C)
+    S = x.shape[1]
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, W):
+        y = y + xp[:, i:i + S] * w[i]
+    return y, xp[:, S:].clone()
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """Chunked SSD scan (the plain version of K2 on the CPU).
+
+    xh: (B, S, H, P) inputs per head; dt: (B, S, H) post-softplus step
+    sizes; A: (H,) negative decay rates; Bm/Cm: (B, S, N) input/output
+    maps. Returns (y: (B, S, H, P) in xh's dtype, final_state: (B, H, P, N) f32).
+    """
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    if chunk < 1 or nc * chunk != S:
+        raise ValueError(f"chunk {chunk} does not divide the sequence length {S}")
+    f32 = torch.float32
+
+    dA = dt.to(f32) * A.to(f32)                                 # (B,S,H) log-decay
+    cum = torch.cumsum(dA.reshape(Bsz, nc, chunk, H), dim=2)    # (B,nc,c,H)
+    xc = xh.reshape(Bsz, nc, chunk, H, P).to(f32)
+    dtc = dt.reshape(Bsz, nc, chunk, H).to(f32)
+    Bc = Bm.reshape(Bsz, nc, chunk, N).to(f32)
+    Cc = Cm.reshape(Bsz, nc, chunk, N).to(f32)
+
+    # ---- intra-chunk (diagonal blocks), in head blocks of hb -----------
+    CB = torch.einsum("bzin,bzjn->bzij", Cc, Bc)                # (B,nc,c,c)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
+    CBm = torch.where(tri, CB, torch.zeros((), dtype=f32, device=xh.device))
+    hb = min(4, H)   # (B,nc,c,c,hb) f32 is the peak intra-chunk tensor
+    while H % hb:
+        hb -= 1
+    y_diag = torch.empty((Bsz, nc, chunk, H, P), dtype=f32, device=xh.device)
+    for h0 in range(0, H, hb):
+        cum_b = cum[..., h0:h0 + hb]                            # (B,nc,c,hb)
+        # mask before exp: cum_i - cum_j > 0 above the diagonal
+        diff = cum_b[:, :, :, None, :] - cum_b[:, :, None, :, :]
+        decay = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                      torch.full((), -math.inf, dtype=f32,
+                                                 device=xh.device)))
+        y_diag[..., h0:h0 + hb, :] = torch.einsum(
+            "bzij,bzijh,bzjh,bzjhp->bzihp",
+            CBm, decay, dtc[..., h0:h0 + hb], xc[..., h0:h0 + hb, :])
+
+    # ---- chunk boundary states ---------------------------------------
+    seg = torch.exp(cum[:, :, -1:, :] - cum)                    # decay from j to chunk end
+    states = torch.einsum("bzjn,bzjh,bzjhp->bzhpn", Bc, seg * dtc, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                   # (B,nc,H)
+
+    # ---- inter-chunk recurrence (the only sequential part) -----------
+    s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=xh.device)
+         if init_state is None else init_state.to(f32))
+    s_prev = []
+    for z in range(nc):
+        s_prev.append(s)
+        s = chunk_decay[:, z, :, None, None] * s + states[:, z]
+    s_prev = torch.stack(s_prev, dim=1)                         # (B,nc,H,P,N)
+
+    # ---- inter-chunk contribution to outputs --------------------------
+    y_off = torch.einsum("bzin,bzih,bzhpn->bzihp", Cc, torch.exp(cum), s_prev)
+    y = (y_diag + y_off).reshape(Bsz, S, H, P)
+    return y.to(xh.dtype), s
+
+
+def ssd_decode_step(state, x, dt, A, Bv, Cv):
+    """One-token SSD update. x: (B,H,P) dt: (B,H) Bv/Cv: (B,N) state: (B,H,P,N)."""
+    f32 = torch.float32
+    dA = torch.exp(dt.to(f32) * A.to(f32))                      # (B,H)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt.to(f32), Bv.to(f32), x.to(f32))
+    state = dA[:, :, None, None] * state + dBx
+    y = torch.einsum("bn,bhpn->bhp", Cv.to(f32), state)
+    return y.to(x.dtype), state
+
+
+def pick_chunk(S: int, cfg, rc: RunConfig) -> int:
+    """The JAX package's chunk: min(rc.ssd_chunk or cfg.ssm_chunk, S),
+    decremented until it divides S."""
+    chunk = min(rc.ssd_chunk or cfg.ssm_chunk, S)
+    while S % chunk:
+        chunk -= 1
+    return chunk
+
+
+def apply_mamba(params, x, cfg, rc: RunConfig, state: Optional[SSMState] = None,
+                return_state: bool = False):
+    """Mamba2 block body (no residual/norm: transformer.py owns those).
+
+    x: (B, S, D). With ``state`` given and S == 1 this is a decode step.
+    Returns (y, new_state | None).
+    """
+    H, P = cfg.ssm_n_heads, cfg.ssm_head_dim
+    cdt = rc.compute_dtype
+
+    xv = x @ params["in_x"]
+    zv = x @ params["in_z"]
+    Bv = x @ params["in_B"]
+    Cv = x @ params["in_C"]
+    dt = x @ params["in_dt"]
+
+    tails = (None, None, None) if state is None else (state.conv_x, state.conv_B,
+                                                      state.conv_C)
+    xv, tx = causal_conv(xv, params["conv_x"], tails[0])
+    Bv, tb = causal_conv(Bv, params["conv_B"], tails[1])
+    Cv, tc = causal_conv(Cv, params["conv_C"], tails[2])
+    xv = F.silu(xv)
+    Bv = F.silu(Bv)
+    Cv = F.silu(Cv)
+
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+
+    Bsz, S, _ = x.shape
+    xh = xv.reshape(Bsz, S, H, P)
+
+    new_state = None
+    if state is not None and S == 1:
+        y, ssd = ssd_decode_step(state.ssd, xh[:, 0], dt[:, 0], A, Bv[:, 0], Cv[:, 0])
+        y = y[:, None]                                          # (B,1,H,P)
+        new_state = SSMState(ssd, tx, tb, tc)
+    else:
+        init = state.ssd if state is not None else None
+        y, ssd = ops.ssd(xh, dt, A, Bv, Cv, chunk=pick_chunk(S, cfg, rc),
+                         init_state=init)
+        if return_state:
+            new_state = SSMState(ssd, tx, tb, tc)
+
+    # D skip, gate, norm, out-projection
+    y = y.float() + params["D_skip"].float()[None, None, :, None] * xh.float()
+    y = y.reshape(Bsz, S, H * P).to(cdt)
+    y = y * F.silu(zv)
+    y = rms_norm(y, params["gate_norm"], cfg.norm_eps)
+    return y @ params["out"], new_state
+
+
+def init_ssm_state(cfg, batch: int, dtype, device, layers: Optional[int] = None) -> SSMState:
+    """Zeroed state of one layer, or of ``layers`` stacked layers (leading L axis).
+
+    Every tensor is its own zeroed allocation: the port writes the state
+    in place, so no layer may alias another.
+    """
+    H, P, N = cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state
+    W, di = cfg.ssm_conv_width, cfg.ssm_d_inner
+    lead = () if layers is None else (layers,)
+    return SSMState(
+        ssd=torch.zeros(lead + (batch, H, P, N), dtype=torch.float32, device=device),
+        conv_x=torch.zeros(lead + (batch, W - 1, di), dtype=dtype, device=device),
+        conv_B=torch.zeros(lead + (batch, W - 1, N), dtype=dtype, device=device),
+        conv_C=torch.zeros(lead + (batch, W - 1, N), dtype=dtype, device=device),
+    )

@@ -1,9 +1,9 @@
-"""Model assembly for the dense family: stacked blocks, forward, decode.
+"""Model assembly for the dense and ssm families: stacked blocks, forward, decode.
 
 Params keep the JAX package's tree: a dict with ``embed``,
 ``final_norm`` and ``blocks``, whose leaves are stacked with a leading
 L axis. The JAX package's ``lax.scan`` over layers becomes a Python loop
-over that axis. The other families (moe, ssm, hybrid, audio, vlm) raise
+over that axis. The other families (moe, hybrid, audio, vlm) raise
 ``NotImplementedError`` naming the slice that ports them.
 """
 from __future__ import annotations
@@ -13,23 +13,24 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init,
                                        init_mlp, rms_norm)
 
 # SSM / router leaves that stay f32 through compute-dtype casting
 _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "router", "gate")
 
+_PORTED_FAMILIES = ("dense", "ssm")
 _SLICE_OF_FAMILY = {
     "moe": "the MoE slice",
-    "ssm": "the SSM slice (with kernel K2)",
     "hybrid": "the hybrid slice",
     "audio": "the audio slice",
     "vlm": "the VLM slice",
 }
 
 
-def _require_dense(cfg) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg) -> None:
+    if cfg.family not in _PORTED_FAMILIES:
         slice_ = _SLICE_OF_FAMILY.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is ported with {slice_}")
@@ -70,6 +71,13 @@ def _init_attn_block(gen, cfg, dtype, device):
     }
 
 
+def _init_mamba_block(gen, cfg, dtype, device):
+    return {
+        "ln": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
+        "mamba": ssm_lib.init_mamba(gen, cfg, dtype, device),
+    }
+
+
 def _stack(trees):
     return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
             else torch.stack([t[k] for t in trees]) for k in trees[0]}
@@ -78,11 +86,12 @@ def _stack(trees):
 def init_params(cfg, gen: Optional[torch.Generator], rc: RunConfig) -> Dict[str, Any]:
     """Random params with the JAX package's distributions, on ``rc.device``.
 
-    truncated-normal fan-in matrices (``wo`` scaled by 1/sqrt(2L)),
-    embeddings N(0, 0.02), zero biases and norms. ``gen`` must live on
+    truncated-normal fan-in matrices (``wo`` and the Mamba2 ``out``
+    scaled by 1/sqrt(2L)), embeddings N(0, 0.02), zero biases and norms,
+    and the Mamba2 leaves of ``ssm.init_mamba``. ``gen`` must live on
     ``rc.device``; it may be None only on the meta device.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     dtype, device = rc.param_dtype, torch.device(rc.device)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_padded, cfg.d_model), dtype, device),
@@ -90,7 +99,8 @@ def init_params(cfg, gen: Optional[torch.Generator], rc: RunConfig) -> Dict[str,
     }
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, (cfg.vocab_padded, cfg.d_model), dtype, device)
-    params["blocks"] = _stack([_init_attn_block(gen, cfg, dtype, device)
+    init_block = _init_mamba_block if cfg.family == "ssm" else _init_attn_block
+    params["blocks"] = _stack([init_block(gen, cfg, dtype, device)
                                for _ in range(cfg.n_layers)])
     return params
 
@@ -108,6 +118,13 @@ def _apply_attn_block(bp, h, cfg, rc, positions, *, cache=None, cache_index=None
     x2 = rms_norm(h, bp["ln2"], cfg.norm_eps)
     h = h + apply_mlp(bp["mlp"], x2, gelu=cfg.gelu_mlp)
     return h, kv
+
+
+def _apply_mamba_block(bp, h, cfg, rc, *, state=None, return_state=False):
+    x1 = rms_norm(h, bp["ln"], cfg.norm_eps)
+    y, new_state = ssm_lib.apply_mamba(bp["mamba"], x1, cfg, rc, state=state,
+                                       return_state=return_state)
+    return h + y, new_state
 
 
 def _logits(params, h, cfg):
@@ -128,31 +145,46 @@ def forward(params, cfg, rc: RunConfig, *, tokens: torch.Tensor,
 
     Returns (logits, aux_loss, cache). The cache is None unless
     ``return_cache`` (prefill); then it is {"k", "v": (L, B, S, K, hd),
-    "pos": S}, with ``pos`` a host int. ``last_only`` emits logits for
-    the final position only (what serving prefill needs).
+    "pos": S} for the dense family and {"ssm": SSMState stacked over L,
+    "pos": S} for the ssm family, with ``pos`` a host int. ``last_only``
+    emits logits for the final position only (what serving prefill needs).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     params = _cast_params(params, rc)
     h = params["embed"][tokens]
     B, S = tokens.shape
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=rc.compute_dtype)
-    positions = torch.arange(S, device=h.device)[None, :]
 
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        h, kv = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc,
-                                  positions, return_kv=return_cache)
+    cache = None
+    if cfg.family == "ssm":
+        states = (ssm_lib.init_ssm_state(cfg, B, rc.compute_dtype, h.device,
+                                         layers=cfg.n_layers)
+                  if return_cache else None)
+        for i in range(cfg.n_layers):
+            h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
+                                       return_state=return_cache)
+            if return_cache:
+                for dst, src in zip(states, st):
+                    dst[i].copy_(src)
         if return_cache:
-            ks.append(kv[0])
-            vs.append(kv[1])
+            cache = {"ssm": states, "pos": S}
+    else:
+        positions = torch.arange(S, device=h.device)[None, :]
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            h, kv = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc,
+                                      positions, return_kv=return_cache)
+            if return_cache:
+                ks.append(kv[0])
+                vs.append(kv[1])
+        if return_cache:
+            cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": S}
 
     if last_only:
         h = h[:, -1:, :]
     logits = _logits(params, h, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": S} \
-        if return_cache else None
     return logits, aux, cache
 
 
@@ -160,34 +192,53 @@ def forward(params, cfg, rc: RunConfig, *, tokens: torch.Tensor,
 # Decode (single token against a cache)
 # ---------------------------------------------------------------------------
 def init_cache(cfg, rc: RunConfig, batch: int, max_len: int):
-    """Zeroed decode cache, the structure forward(return_cache=True) gives."""
-    _require_dense(cfg)
+    """Zeroed decode cache, the structure forward(return_cache=True) gives.
+
+    The ssm family's cache does not grow with the sequence: ``max_len``
+    sizes only the dense family's k/v. Each layer's state is its own
+    zeroed allocation (no broadcast views), since decode writes it in place.
+    """
+    _require_ported(cfg)
+    device = torch.device(rc.device)
+    if cfg.family == "ssm":
+        return {"ssm": ssm_lib.init_ssm_state(cfg, batch, rc.compute_dtype, device,
+                                              layers=cfg.n_layers),
+                "pos": 0}
     K, hd, L = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
     shape = (L, batch, max_len, K, hd)
-    kw = dict(dtype=rc.compute_dtype, device=torch.device(rc.device))
+    kw = dict(dtype=rc.compute_dtype, device=device)
     return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw), "pos": 0}
 
 
 def decode_step(params, cfg, rc: RunConfig, cache, tokens: torch.Tensor):
     """One decode step. tokens: (B, 1) int.
 
-    Returns (logits (B, 1, Vp), new_cache). This step's k/v are written
-    into ``cache["k"]`` / ``cache["v"]`` in place (the JAX package
-    donates the cache); new_cache holds the same tensors and pos + 1.
-    ``pos`` is a host int, so a step forces no device sync.
+    Returns (logits (B, 1, Vp), new_cache). The cache is written in place
+    (the JAX package donates it): this step's k/v into ``cache["k"]`` /
+    ``cache["v"]``, or each layer's new SSM state into ``cache["ssm"]``.
+    new_cache holds the same tensors and pos + 1. ``pos`` is a host int,
+    so a step forces no device sync.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     params = _cast_params(params, rc)
     index = int(cache["pos"])
     h = params["embed"][tokens]
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=rc.compute_dtype)
-    positions = torch.full(tokens.shape[:1] + (1,), index, device=h.device)
 
-    for i in range(cfg.n_layers):
-        h, _ = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc, positions,
-                                 cache=(cache["k"][i], cache["v"][i]),
-                                 cache_index=index)
+    if cfg.family == "ssm":
+        states = cache["ssm"]
+        for i in range(cfg.n_layers):
+            h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
+                                       state=ssm_lib.SSMState(*(t[i] for t in states)))
+            for dst, src in zip(states, st):
+                dst[i].copy_(src)
+    else:
+        positions = torch.full(tokens.shape[:1] + (1,), index, device=h.device)
+        for i in range(cfg.n_layers):
+            h, _ = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc, positions,
+                                     cache=(cache["k"][i], cache["v"][i]),
+                                     cache_index=index)
 
     new_cache = dict(cache)
     new_cache["pos"] = index + 1

@@ -1,4 +1,4 @@
-"""The port on a CUDA card: K1 itself and the reduced model's cache path.
+"""The port on a CUDA card: K1 and K2 themselves and the reduced models' cache paths.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports no JAX (the machine with the card has none); run it there with
@@ -6,7 +6,9 @@ imports no JAX (the machine with the card has none); run it there with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 f32 comparisons are made with TF32 off; K1's tolerances are those of
-chip_smoke.py (f32 1e-5, bf16 2e-2).
+chip_smoke.py (f32 1e-5, bf16 2e-2), and K2's are the JAX kernel
+tests': against ``ref.ssd_ref`` f32 2e-3 and bf16 5e-2, against
+``models.ssm.ssd_chunked`` (f32) 2e-4.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import RunConfig, build  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,5 +76,83 @@ def test_reduced_model_decode_matches_forward_on_card(card):
     for t in range(S):
         logits, cache = model.decode(params, cache, {"tokens": tokens[:, t:t + 1]})
         outs.append(logits)
+    err = (torch.cat(outs, dim=1) - full).abs().max()
+    assert float(err) < 2e-3, float(err)
+
+
+def _ssd_inputs(card, b, s, h, p, n, x_dtype, bc_dtype, with_init=False):
+    gen = torch.Generator(device=card).manual_seed(b * 1000 + s + h * 10 + p + n)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=card)
+    x = randn(b, s, h, p).to(x_dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    A = -torch.exp(randn(h) * 0.3)
+    B = (randn(b, s, n) * 0.5).to(bc_dtype)
+    C = (randn(b, s, n) * 0.5).to(bc_dtype)
+    init = randn(b, h, p, n) * 0.5 if with_init else None
+    return x, dt, A, B, C, init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 256, 8, 64, 128, 128),    # mamba2-2.7b's (P, N)
+    (2, 96, 4, 64, 128, 96),      # S=96 -> chunk 96
+    (2, 256, 4, 64, 64, 128),     # zamba2-1.2b's (P, N)
+    (2, 24, 4, 16, 16, 12),       # reduced configs, S=24 -> chunk 12
+    (1, 13, 2, 8, 16, 1),         # a prime S -> chunk 1
+    (1, 64, 2, 8, 16, 16),        # tests/test_kernels.py's SSD_SHAPES
+    (2, 128, 4, 16, 32, 32),
+    (1, 128, 8, 32, 64, 64),
+    (2, 96, 2, 16, 16, 48),
+])
+@pytest.mark.parametrize("dtypes", ["float32", "bfloat16", "bf16 x, f32 B/C"])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_k2_matches_plain(card, b, s, h, p, n, chunk, dtypes, with_init):
+    x_dtype = torch.float32 if dtypes == "float32" else torch.bfloat16
+    bc_dtype = torch.bfloat16 if dtypes == "bfloat16" else torch.float32
+    x, dt, A, B, C, init = _ssd_inputs(card, b, s, h, p, n, x_dtype, bc_dtype, with_init)
+    before = ops.ssd.launches
+    y, st = ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init)
+    assert ops.ssd.launches == before + 1
+    y_ref, st_ref = ref.ssd_ref(x, dt, A, B, C, init_state=init)
+    torch.cuda.synchronize()
+    assert y.dtype == x_dtype and st.dtype == torch.float32
+    tol = 2e-3 if x_dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, st_ref, atol=tol, rtol=tol)
+    if dtypes == "float32":
+        y_c, st_c = ssd_chunked(x, dt, A, B, C, chunk, init_state=init)
+        torch.testing.assert_close(y, y_c, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(st, st_c, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_k2_refuses_what_it_does_not_take(card):
+    x, dt, A, B, C, _ = _ssd_inputs(card, 1, 32, 2, 16, 16, torch.float32, torch.float32)
+    noncontiguous = x.transpose(2, 3).contiguous().transpose(2, 3)
+    for bad_x, chunk in ((x.half(), 16), (noncontiguous, 16), (x, 256), (x, 12)):
+        with pytest.raises(ValueError):
+            ops.ssd(bad_x, dt, A, B, C, chunk=chunk)
+
+
+@pytest.mark.cuda
+def test_reduced_mamba2_decode_matches_forward_on_card(card):
+    cfg = get_config("mamba2-2.7b").reduced()
+    model = build(cfg, RunConfig(param_dtype=torch.float32,
+                                 compute_dtype=torch.float32, device="cuda"))
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    B, S = 2, 12
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(card)
+    before = ops.ssd.launches
+    full, _, _ = model.apply(params, {"tokens": tokens})
+    assert ops.ssd.launches == before + cfg.n_layers
+    cache = model.init_cache(B, S)
+    outs = []
+    for t in range(S):
+        logits, cache = model.decode(params, cache, {"tokens": tokens[:, t:t + 1]})
+        outs.append(logits)
+    assert ops.ssd.launches == before + cfg.n_layers      # decode launches none
     err = (torch.cat(outs, dim=1) - full).abs().max()
     assert float(err) < 2e-3, float(err)

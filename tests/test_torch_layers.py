@@ -36,9 +36,10 @@ def _close(j, t, tol):
 # ---------------------------------------------------------------------------
 # configs: the port keeps its own copy; it must equal the reference
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b"])
 @pytest.mark.parametrize("reduced", [False, True])
-def test_config_copy_matches_reference(reduced):
-    a, b = jcfg.get_config("qwen2-0.5b"), tcfg.get_config("qwen2-0.5b")
+def test_config_copy_matches_reference(reduced, arch):
+    a, b = jcfg.get_config(arch), tcfg.get_config(arch)
     if reduced:
         a, b = a.reduced(), b.reduced()
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
@@ -49,11 +50,16 @@ def test_config_copy_matches_reference(reduced):
 def test_shapes_and_registry():
     assert {k: dataclasses.asdict(v) for k, v in jcfg.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in tcfg.SHAPES.items()}
-    assert tcfg.list_configs() == ["qwen2-0.5b"]
+    assert tcfg.list_configs() == ["mamba2-2.7b", "qwen2-0.5b"]
     cfg = tcfg.get_config("qwen2-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_padded) == \
         (24, 896, 14, 2, 64, 4864, 152064)
+    cfg = tcfg.get_config("mamba2-2.7b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.ssm_d_inner, cfg.ssm_n_heads,
+            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv_width, cfg.ssm_chunk,
+            cfg.vocab_padded, cfg.tie_embeddings) == \
+        ("ssm", 64, 2560, 5120, 80, 64, 128, 4, 128, 50432, False)
     with pytest.raises(KeyError):
         tcfg.get_config("gemma-7b")
 
@@ -66,21 +72,37 @@ def _leaves(tree, prefix=""):
             yield prefix + k, v
 
 
-def test_meta_init_matches_reference_tree():
-    """The full-width params tree, built on the meta device, has the JAX
-    tree's keys, shapes and dtypes, and the analytic parameter count
-    (which leaves out the final norm)."""
+def _assert_meta_tree_matches_reference(arch):
     from repro.models import RunConfig as JaxRunConfig, build as jax_build
-    cfg = tcfg.get_config("qwen2-0.5b")
+    cfg = tcfg.get_config(arch)
     meta = dict(_leaves(build(cfg, RunConfig(device="cpu")).init_eval_shape()))
-    ref = dict(_leaves(jax_build(jcfg.get_config("qwen2-0.5b"),
-                                 JaxRunConfig()).init_eval_shape()))
+    ref = dict(_leaves(jax_build(jcfg.get_config(arch), JaxRunConfig()).init_eval_shape()))
     assert sorted(meta) == sorted(ref)
     for name, t in meta.items():
         assert t.device.type == "meta"
         assert tuple(t.shape) == tuple(ref[name].shape), name
         assert str(t.dtype).removeprefix("torch.") == str(ref[name].dtype), name
-    assert sum(t.numel() for t in meta.values()) == cfg.param_count() + cfg.d_model
+    return cfg, sum(t.numel() for t in meta.values())
+
+
+def test_meta_init_matches_reference_tree():
+    """The full-width params tree, built on the meta device, has the JAX
+    tree's keys, shapes and dtypes, and the analytic parameter count
+    (which leaves out the final norm)."""
+    cfg, n = _assert_meta_tree_matches_reference("qwen2-0.5b")
+    assert n == cfg.param_count() + cfg.d_model
+
+
+def test_mamba2_meta_tree_and_norm_count():
+    """mamba2-2.7b's full-width tree matches the JAX tree. The analytic
+    count takes 2 * d_model norm values per Mamba2 layer, but a layer
+    holds ``ln`` (d_model) and ``gate_norm`` (d_inner = 2 * d_model), and
+    the final norm is left out: the tree holds param_count() +
+    n_layers * d_model + d_model values, in the port as in the reference."""
+    cfg, n = _assert_meta_tree_matches_reference("mamba2-2.7b")
+    assert cfg.ssm_d_inner == 2 * cfg.d_model
+    assert n == cfg.param_count() + cfg.n_layers * cfg.d_model + cfg.d_model
+    assert n == 2_831_730_176
 
 
 # ---------------------------------------------------------------------------

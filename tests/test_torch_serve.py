@@ -264,7 +264,7 @@ def test_out_of_slice_paths_raise():
         build_prefill_step(cfg, object(), B=1, S=4, rc=rc)
     with pytest.raises(NotImplementedError, match="parallel"):
         build_decode_step(cfg, ShapeConfig("d", "decode", 4, 1), object(), rc=rc)
-    for family, name in (("moe", "MoE"), ("ssm", "SSM"), ("vlm", "VLM")):
+    for family, name in (("moe", "MoE"), ("hybrid", "hybrid"), ("vlm", "VLM")):
         model = build(dataclasses.replace(cfg, family=family), rc)
         with pytest.raises(NotImplementedError, match=name):
             model.init(torch.Generator().manual_seed(0))
@@ -290,7 +290,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 17, mods\n"
+        "assert len(mods) >= 20, mods\n"
         "print(len(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
@@ -325,10 +325,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke):
     cfg = get_config("qwen2-0.5b").reduced()
     res = chip_smoke.serve(cfg, device="cpu", batch=2, prompt_len=16, decode_steps=3)
     assert res["tokens"].shape == (2, 4)
-    assert res["prefill_launches"] == res["request_launches"] == 0   # no card
+    no_card = {"attention": 0, "ssd": 0}
+    assert res["prefill_launches"] == res["request_launches"] == no_card
     errs = chip_smoke.consistency(cfg, device="cpu", prefill_batch=2, prefill_len=16,
                                   batch=2, seq_len=12, split=5)
-    assert errs["prefill_k1_vs_plain"] == 0.0
+    assert errs["prefill_kernels_vs_plain"] == 0.0
     assert errs["prefill_decode_vs_forward"] < chip_smoke.DECODE_TOL
 
 
