@@ -9,17 +9,21 @@ Phases; any failure exits non-zero and prints no result line:
    every kernel in ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
    all started together) and print the build seconds and ptxas report.
 2. Kernels: K1 (flash attention) against its plain version at the
-   serving shape of qwen2-0.5b (B=8, S=512, H=14, hd=64; causal and not,
-   bf16 and f32), at a ragged S and at head_dim 32 and 128. Timed with
-   CUDA events beside the plain version, PyTorch's
-   ``scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it) and the bound. K2 (the SSD scan) against ``ref.ssd_ref``
-   (f32 2e-3, bf16 5e-2) and, in f32, ``models.ssm.ssd_chunked`` (2e-4),
-   y and final state, at the serving shape of mamba2-2.7b (B=8, S=512,
-   H=80, P=64, N=128, chunk 128), at chunks 96, 12 and 1, at (P, N) =
-   (64, 64), (16, 16) and the JAX kernel tests' shapes, with bf16 x and
-   f32 B/C, and with an initial state. Timed beside both plain versions
-   and the bound (no single PyTorch call computes it).
+   serving shape of qwen2-0.5b (B=8, S=512, H=14 query heads over K=2
+   KV heads, hd=64; causal and not, bf16 and f32), at K = H and K = 1,
+   at a ragged S and T and at head_dim 32 and 128. Timed with CUDA
+   events beside the plain version, PyTorch's
+   ``scaled_dot_product_attention`` on the full-H (``repeat_kv``) k/v
+   (a yardstick only; the port never calls it) and the bound. K2 (the
+   SSD scan) against ``ref.ssd_ref`` (f32 2e-3, bf16 5e-2) and, in f32,
+   ``models.ssm.ssd_chunked`` (2e-4), y and final state, at the serving
+   shape of mamba2-2.7b (B=8, S=512, H=80, P=64, N=128, chunk 128), at
+   chunks 96, 48, 12 and 1, at (P, N) = (64, 64), (16, 16) and the JAX
+   kernel tests' shapes, with bf16 x and f32 B/C, and with an initial
+   state; each case prints the kernel its dtypes chose (``mma``: tensor
+   cores, bf16 x and B/C; ``scalar``: any f32 operand). Timed beside
+   both plain versions and the bound (no single PyTorch call computes
+   it).
 3. Serve: full-width qwen2-0.5b, then full-width mamba2-2.7b, in bf16
    with seeded random weights, built through ``runtime.serve``, each
    answering 8 requests of 512-token prompts: one prefill, then greedy
@@ -77,16 +81,17 @@ def _dtype_name(dtype) -> str:
 # ---------------------------------------------------------------------------
 # K1 bound and timing
 # ---------------------------------------------------------------------------
-def attention_bound(B, S, T, H, hd, dtype, causal):
+def attention_bound(B, S, T, H, K, hd, dtype, causal):
     """(bound_ms, bound_by): the least time for this work on an H100.
 
-    Bytes: q, k, v read once and o written once. Operations: 2 FLOPs per
-    multiply-add of q.k and of p.v over the (query, key) pairs the mask
-    keeps (this run's pairs, not S*T when causal).
+    Bytes: q (H heads), k and v (K heads) read once and o written once.
+    Operations: 2 FLOPs per multiply-add of q.k and of p.v over the
+    (query, key) pairs the mask keeps (this run's pairs, not S*T when
+    causal), for every query head.
     """
     import torch
     itemsize = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * B * S * H * hd + 2 * B * T * H * hd) * itemsize
+    nbytes = (2 * B * S * H * hd + 2 * B * T * K * hd) * itemsize
     pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
     flops = 4 * B * H * hd * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -94,14 +99,22 @@ def attention_bound(B, S, T, H, hd, dtype, causal):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
-    """Mean device time of fn() over ``iters`` back-to-back calls (CUDA events)."""
+def time_ms(fn, iters: int = 100, warmup: int = 10, queued: bool = True) -> float:
+    """Mean device time of fn() over ``iters`` back-to-back calls (CUDA events).
+
+    ``queued``: the stream first spins for about 50 ms (``torch.cuda._sleep``)
+    while the host queues the calls, so that a call whose host side takes
+    longer than its kernels is still timed by its kernels, not by its
+    Python. Without it the time is paced by whichever side is slower.
+    """
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -117,24 +130,26 @@ def check_k1(gen) -> dict:
     from repro_torch.kernels import ops, ref
 
     cases = [
-        # (B, S, T, H, hd, dtype, causal)
-        (8, 512, 512, 14, 64, torch.bfloat16, True),   # the serving prefill
-        (8, 512, 512, 14, 64, torch.bfloat16, False),
-        (8, 512, 512, 14, 64, torch.float32, True),
-        (8, 512, 512, 14, 64, torch.float32, False),
-        (2, 200, 200, 4, 64, torch.bfloat16, True),    # ragged S
-        (2, 200, 200, 4, 64, torch.float32, True),
-        (2, 200, 333, 4, 64, torch.float32, False),    # ragged T != S
-        (2, 256, 256, 8, 32, torch.bfloat16, True),
-        (2, 256, 256, 8, 32, torch.float32, True),
-        (2, 256, 256, 8, 128, torch.bfloat16, True),
-        (2, 256, 256, 8, 128, torch.float32, False),
+        # (B, S, T, H, K, hd, dtype, causal): K KV heads, H % K == 0
+        (8, 512, 512, 14, 2, 64, torch.bfloat16, True),    # the serving prefill
+        (8, 512, 512, 14, 2, 64, torch.bfloat16, False),
+        (8, 512, 512, 14, 2, 64, torch.float32, True),
+        (8, 512, 512, 14, 2, 64, torch.float32, False),
+        (8, 512, 512, 14, 14, 64, torch.bfloat16, True),   # full-H k/v (K == H)
+        (2, 200, 200, 4, 2, 64, torch.bfloat16, True),     # ragged S
+        (2, 200, 200, 4, 2, 64, torch.float32, True),
+        (2, 200, 333, 4, 4, 64, torch.float32, False),     # ragged T != S
+        (2, 200, 333, 4, 1, 64, torch.bfloat16, False),
+        (2, 256, 256, 8, 1, 32, torch.bfloat16, True),
+        (2, 256, 256, 8, 2, 32, torch.float32, True),
+        (2, 256, 256, 8, 2, 128, torch.bfloat16, True),
+        (2, 256, 256, 8, 1, 128, torch.float32, False),
     ]
     main = None
-    for B, S, T, H, hd, dtype, causal in cases:
+    for B, S, T, H, K, hd, dtype, causal in cases:
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
-        k = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dtype)
         out = ops.attention(q, k, v, causal=causal)
         expect = ref.attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -144,25 +159,31 @@ def check_k1(gen) -> dict:
         err = float(diff.max())
         tol = K1_TOL[_dtype_name(dtype)]
         ok = bool((diff <= tol + tol * expect.float().abs()).all())
-        print(f"  K1 B={B} S={S} T={T} H={H} hd={hd} {_dtype_name(dtype)} "
+        print(f"  K1 B={B} S={S} T={T} H={H} K={K} hd={hd} {_dtype_name(dtype)} "
               f"causal={causal}: max_abs_err={err:.3e} (tol {tol:g}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         _check(ok, f"K1 disagrees with its plain version: max_abs_err={err}")
         if main is None:
-            main = (q, k, v, causal, err, (B, S, T, H, hd, dtype, causal))
+            main = (q, k, v, causal, err, (B, S, T, H, K, hd, dtype, causal))
 
     q, k, v, causal, err, shape = main
     ms = time_ms(lambda: ops.attention(q, k, v, causal=causal))
+    paced_ms = time_ms(lambda: ops.attention(q, k, v, causal=causal), queued=False)
     plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal), iters=20)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # the yardstick on full-H k/v, as the runs before the GQA-folded K1 timed it
+    H = q.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, ref.repeat_kv(k, H), ref.repeat_kv(v, H)))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
     bound_ms, bound_by = attention_bound(*shape)
+    print(f"  K1 at the serving shape, paced by the host (back-to-back calls without "
+          f"a queued start): {paced_ms:.4f} ms a call", flush=True)
     print(f"  K1 at the serving shape: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{bound_ms / ms:.1%} of the bound", flush=True)
+          f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms "
+          f"({bound_by}), {bound_ms / ms:.1%} of the bound", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
+            "design": "mma.sync bf16 + cp.async ring, GQA-folded k/v; f32 scalar",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
@@ -225,6 +246,7 @@ def check_k2(gen) -> dict:
     """Hold K2 against both plain versions on the card; time the serving shape."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.models.ssm import ssd_chunked
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -246,6 +268,13 @@ def check_k2(gen) -> dict:
         (2, 96, 2, 16, 16, 48, bf16, f32, False),        # bf16 x with f32 B/C
         (2, 256, 8, 64, 128, 128, f32, f32, True),       # with an initial state
         (2, 256, 8, 64, 128, 128, bf16, bf16, True),
+        # the tensor-core path's padding: chunk and N not multiples of 16
+        (2, 96, 4, 64, 64, 48, bf16, bf16, True),
+        (2, 24, 4, 64, 128, 12, bf16, bf16, True),
+        (2, 24, 4, 16, 16, 12, bf16, bf16, True),
+        (1, 7, 2, 64, 64, 1, bf16, bf16, True),
+        (2, 64, 4, 32, 20, 32, bf16, bf16, True),
+        (1, 32, 2, 8, 12, 16, bf16, bf16, False),
     ]
     main, err_main = None, None
     for case in cases:
@@ -260,7 +289,8 @@ def check_k2(gen) -> dict:
                and tuple(fin.shape) == (b, h, p, n),
                f"K2 outputs {tuple(y.shape)} {y.dtype}, {tuple(fin.shape)} {fin.dtype}")
         print(f"  K2 b={b} s={s} h={h} p={p} n={n} chunk={chunk} x {_dtype_name(xdt)} "
-              f"B/C {_dtype_name(bcdt)} init_state={with_init}:", flush=True)
+              f"B/C {_dtype_name(bcdt)} init_state={with_init} "
+              f"kernel={ssd_mod.kernel_path(xdt, bcdt)}:", flush=True)
         tol = K2_REF_TOL[_dtype_name(xdt)]
         err = max(_k2_err("y vs ssd_ref", y, y_ref, tol),
                   _k2_err("state vs ssd_ref", fin, fin_ref, tol))
@@ -273,6 +303,9 @@ def check_k2(gen) -> dict:
 
     x, dt, A, B, C, (b, s, h, p, n, chunk, xdt, bcdt, _) = main
     ms = time_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk))
+    paced_ms = time_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk), queued=False)
+    print(f"  K2 at the serving shape, paced by the host: {paced_ms:.4f} ms a call",
+          flush=True)
     plain_ms = time_ms(lambda: ssd_chunked(x, dt, A, B, C, chunk), iters=10, warmup=2)
     ref_ms = time_ms(lambda: ref.ssd_ref(x, dt, A, B, C), iters=3, warmup=1)
     bound_ms, bound_by = ssd_bound(b, s, h, p, n, chunk, xdt, bcdt)
@@ -282,6 +315,8 @@ def check_k2(gen) -> dict:
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:35",
+            "design": "mma.sync bf16 (f32 operands split hi + lo) + cp.async, "
+                      "(batch, head, P/2) CTAs; f32 scalar",
             "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms,
             "plain_ref_ms": ref_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
@@ -392,7 +427,7 @@ def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route both ``ops`` entries (full-H attention, SSD scan) to their plain
+    """Route both ``ops`` entries (attention, SSD scan) to their plain
     versions, for a comparison only."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models.ssm import ssd_chunked

@@ -3,8 +3,11 @@
 The kernel, ``csrc/flash_attention.cu``, replaces the JAX package's
 Pallas kernel ``repro/kernels/flash_attention.py::_kernel``; its note
 gives the design and the bound. This module checks the inputs, allocates
-the output and launches it on PyTorch's current stream. It takes CUDA
-tensors only; ``ops.attention`` sends a CPU tensor to the plain version,
+the output and launches it on PyTorch's current stream. k and v come in
+the model's grouped form (B, T, K, hd), H % K == 0: query head h reads
+KV head h // (H // K), and K == H is the full-H call. bf16 inputs run the
+tensor-core kernel, f32 inputs the scalar one. It takes CUDA tensors
+only; ``ops.attention`` sends a CPU tensor to the plain version,
 ``ref.attention_ref``.
 """
 from __future__ import annotations
@@ -24,7 +27,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 def _launcher():
     lib = _build.load("flash_attention")
     fn = lib.k1_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.k1_error_string.argtypes = [ctypes.c_int]
     lib.k1_error_string.restype = ctypes.c_char_p
@@ -39,7 +42,7 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.dtype not in DTYPES:
             raise ValueError(f"K1 takes float32 or bfloat16; {name} is {t.dtype}")
         if t.dim() != 4:
-            raise ValueError(f"K1 takes (B, S, H, hd) tensors; {name} has shape "
+            raise ValueError(f"K1 takes 4-d (B, S|T, H|K, hd) tensors; {name} has shape "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"K1 takes contiguous tensors; {name} is not")
@@ -52,17 +55,20 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"K1 takes head_dim in {HEAD_DIMS}; got {hd}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, hd):
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"K1 shapes disagree: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if min(B, S, H, k.shape[1]) == 0:
+    if min(B, S, H, k.shape[1], k.shape[2]) == 0:
         raise ValueError(f"K1 takes non-empty tensors; q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"K1 takes a number of KV heads that divides H; "
+                         f"H={H}, K={k.shape[2]}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, S, H, hd), k/v: (B, T, H, hd) full-H form -> (B, S, H, hd).
+    """q: (B, S, H, hd), k/v: (B, T, K, hd) with H % K == 0 -> (B, S, H, hd).
 
     Launches K1 on the current stream and returns without synchronising.
     Raises if the inputs are not ones the kernel takes, if the kernel
@@ -75,7 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, k.shape[1], H, hd, int(q.dtype == torch.bfloat16),
+                B, S, k.shape[1], H, k.shape[2], hd, int(q.dtype == torch.bfloat16),
                 int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc} "

@@ -21,8 +21,9 @@ from repro_torch.kernels import ssd_scan as ssd_mod
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
-    """Full-H attention (B,S,H,hd) x (B,T,H,hd) x2 -> (B,S,H,hd).
+    """Attention (B,S,H,hd) x (B,T,K,hd) x2 -> (B,S,H,hd), H % K == 0.
 
+    Query head h reads KV head h // (H // K); K == H is the full-H form.
     CUDA: K1 (``csrc/flash_attention.cu``). CPU: ``ref.attention_ref``.
     """
     if q.device.type == "cuda":

@@ -12,11 +12,30 @@ import math
 import torch
 
 
-def attention_ref(q, k, v, *, causal: bool = True):
-    """Dense reference attention (plain K1). q: (B, S, H, hd), k/v: (B, T, H, hd).
+def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,T,K,hd) -> (B,T,H,hd) by broadcasting each KV head over its group.
 
-    Computed in f32 throughout; the output takes v's dtype.
+    Query head h reads KV head h // G. The result is a contiguous copy.
     """
+    B, T, K, hd = k.shape
+    G = n_heads // K
+    k = k[:, :, :, None, :].expand(B, T, K, G, hd)
+    return k.reshape(B, T, K * G, hd)
+
+
+def attention_ref(q, k, v, *, causal: bool = True):
+    """Dense reference attention (plain K1). q: (B, S, H, hd), k/v: (B, T, K, hd).
+
+    K divides H; query head h reads KV head h // (H // K) (``repeat_kv``),
+    so K == H is the full-H form. Computed in f32 throughout; the output
+    takes v's dtype.
+    """
+    H, K = q.shape[2], k.shape[2]
+    if H % K:
+        raise ValueError(f"attention takes a number of KV heads that divides H; "
+                         f"H={H}, K={K}")
+    if K != H:
+        k, v = repeat_kv(k, H), repeat_kv(v, H)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if causal:

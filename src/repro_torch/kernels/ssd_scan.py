@@ -2,8 +2,10 @@
 
 The kernel, ``csrc/ssd_scan.cu``, replaces the JAX package's Pallas
 kernel ``repro/kernels/ssd_scan.py::_kernel``; its note gives the design
-and the bound. This module checks the inputs, allocates the outputs and
-the C.B^T scratch, and launches it on PyTorch's current stream. It takes
+and the bound. This module checks the inputs, allocates the outputs
+(and the C.B^T scratch of the scalar kernel), and launches it on PyTorch's current stream. The
+dtypes alone choose the kernel (``kernel_path``): bf16 x with bf16 B/C
+runs the tensor-core scan, any f32 operand the scalar one. It takes
 CUDA tensors only; ``ops.ssd`` sends a CPU tensor to the plain version,
 ``models.ssm.ssd_chunked``.
 """
@@ -20,6 +22,12 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (8, 16, 32, 64)      # P
 MAX_CHUNK = 128                  # also the largest N
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_path(x_dtype: torch.dtype, bc_dtype: torch.dtype) -> str:
+    """The kernel a call with these dtypes runs: "mma" (tensor cores, bf16 x
+    and bf16 B/C) or "scalar" (f32 FMAs, any f32 operand)."""
+    return "mma" if x_dtype == bc_dtype == torch.bfloat16 else "scalar"
 
 
 @functools.cache
@@ -94,12 +102,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     n = B.shape[-1]
     y = torch.empty_like(x)
     final_state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    cb = torch.empty((b, s // chunk, chunk, chunk), dtype=torch.float32, device=x.device)
+    cb = (torch.empty((b, s // chunk, chunk, chunk), dtype=torch.float32, device=x.device)
+          if kernel_path(x.dtype, B.dtype) == "scalar" else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                 None if init_state is None else init_state.data_ptr(),
-                cb.data_ptr(), y.data_ptr(), final_state.data_ptr(),
+                None if cb is None else cb.data_ptr(), y.data_ptr(), final_state.data_ptr(),
                 b, s, h, p, n, chunk, int(x.dtype == torch.bfloat16),
                 int(B.dtype == torch.bfloat16), stream)
     if rc != 0:

@@ -3,12 +3,13 @@
 Shapes convention (as in the JAX package):
   q: (B, S, H, hd)    k/v: (B, T, K, hd)    H = K * G   (GQA groups)
 
-Prefill computes in full-H form: the KV heads are broadcast to H after
-projection (``repeat_kv``) and the full-H attention goes through
-``kernels.ops.attention``, i.e. kernel K1 on a CUDA tensor and its plain
-version on a CPU tensor. That one call takes the place of both of the
-JAX package's branches (``full_attention`` up to ``attn_dense_max``,
-``chunked_attention`` beyond), which compute the same function.
+Prefill hands the projected K-head k/v to ``kernels.ops.attention``,
+i.e. kernel K1 on a CUDA tensor and its plain version on a CPU tensor;
+both read KV head h // G for query head h, so no full-H copy of k/v is
+made (the JAX package broadcasts with ``repeat_kv`` first). That one
+call takes the place of both of the JAX package's branches
+(``full_attention`` up to ``attn_dense_max``, ``chunked_attention``
+beyond), which compute the same function.
 ``full_attention`` and ``chunked_attention`` are kept as the ports of
 those two jnp paths. Decode keeps the (K, G) folded form against the
 K-head cache and stays plain PyTorch: the JAX package computes it
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import repeat_kv  # noqa: F401  (the reference's broadcast)
 from repro_torch.models.layers import RunConfig, apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -46,17 +48,6 @@ def init_attention(gen, cfg, dtype, device, cross: bool = False):
 
 def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
-
-
-def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B,T,K,hd) -> (B,T,H,hd) by broadcasting each KV head over its group.
-
-    Query head h reads KV head h // G. The result is a contiguous copy.
-    """
-    B, T, K, hd = k.shape
-    G = n_heads // K
-    k = k[:, :, :, None, :].expand(B, T, K, G, hd)
-    return k.reshape(B, T, K * G, hd)
 
 
 def full_attention(q, k, v, *, causal: bool, q_offset: int = 0):
@@ -194,7 +185,7 @@ def apply_attention(
     else:
         if return_kv:
             new_kv = (k, v)
-        # ---- full-H compute: K1 on the card ----
-        out = ops.attention(q, repeat_kv(k, H), repeat_kv(v, H), causal=causal)
+        # ---- K-head k/v straight into K1 on the card: no repeat_kv copy ----
+        out = ops.attention(q, k, v, causal=causal)
     out = out.reshape(out.shape[:2] + (H * hd,))
     return out @ params["wo"], new_kv

@@ -1,5 +1,8 @@
 """Parity of the port's attention and of K1's plain version with the JAX package.
 
+K1 and its plain version take k/v with K heads (H % K == 0); the JAX
+kernel and oracle take full-H k/v, so they get the ``repeat_kv`` copy.
+
 The same numpy inputs go through ``repro.models.attention`` /
 ``repro.kernels`` (JAX on the CPU; the Pallas kernel in interpret mode)
 and through ``repro_torch`` with device="cpu". GQA is covered at G = 2
@@ -72,6 +75,7 @@ def test_repeat_kv_and_gqa_fold():
     kj, kt = _pair(rng, (2, 5, 2, 8), "float32")
     _close(ja.repeat_kv(kj, 14), ta.repeat_kv(kt, 14), 0)
     assert ta.repeat_kv(kt, 14).is_contiguous()
+    assert ta.repeat_kv is tref.repeat_kv
     qj, qt = _pair(rng, (2, 1, 14, 8), "float32")
     _close(ja._gqa_fold(qj, 2), ta._gqa_fold(qt, 2), 0)
 
@@ -209,6 +213,63 @@ def test_k1_plain_matches_reference_and_pallas(B, S, H, hd, bq, bk, dtype, causa
     _close(jref.attention_ref(qj, kj, vj, causal=causal), out, tol)
     _close(jax_flash(qj, kj, vj, causal=causal, block_q=bq, block_k=bk,
                      interpret=True), out, tol)
+
+
+@pytest.mark.parametrize("B,S,T,H,hd,blk", [(1, 64, 128, 4, 32, 64), (2, 128, 64, 4, 64, 64)])
+@pytest.mark.parametrize("K", [4, 2, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k1_plain_takes_grouped_kv(B, S, T, H, hd, blk, K, dtype, causal):
+    """K-head k/v (K in {H, H/2, 1}, S != T) against the JAX oracle and the
+    Pallas kernel on repeat_kv'd full-H inputs."""
+    rng = np.random.default_rng(B * 100 + S + T + K)
+    qj, qt = _pair(rng, (B, S, H, hd), dtype)
+    kj, kt = _pair(rng, (B, T, K, hd), dtype)
+    vj, vt = _pair(rng, (B, T, K, hd), dtype)
+    before = ops.attention.launches
+    out = ops.attention(qt, kt, vt, causal=causal)
+    assert ops.attention.launches == before
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    assert torch.equal(out, tref.attention_ref(qt, kt, vt, causal=causal))
+    assert torch.equal(out, tref.attention_ref(qt, tref.repeat_kv(kt, H),
+                                               tref.repeat_kv(vt, H), causal=causal))
+    kf, vf = ja.repeat_kv(kj, H), ja.repeat_kv(vj, H)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _close(jref.attention_ref(qj, kf, vf, causal=causal), out, tol)
+    _close(jax_flash(qj, kf, vf, causal=causal, block_q=blk, block_k=blk, interpret=True),
+           out, tol)
+
+
+def test_attention_refuses_kv_heads_that_do_not_divide_h():
+    q = torch.zeros((1, 8, 6, 32))
+    kv = torch.zeros((1, 8, 4, 32))
+    with pytest.raises(ValueError, match="divides H"):
+        ops.attention(q, kv, kv)
+
+
+@pytest.mark.parametrize("groups", [2, 7])
+def test_apply_attention_prefill_hands_k_head_kv_to_the_kernel(groups, monkeypatch):
+    """The prefill makes no repeat_kv copy: ops.attention gets (B, S, K, hd) k/v."""
+    jc, tc = _cfg(groups)
+    _, tp = _attn_params(jc, "float32", seed=8)
+    seen = []
+    plain = ops.attention
+
+    def recording(q, k, v, *, causal=True):
+        seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape), k.is_contiguous(),
+                     v.is_contiguous()))
+        return plain(q, k, v, causal=causal)
+
+    monkeypatch.setattr(ops, "attention", recording)
+    B, S = 2, 24
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (B, S, tc.d_model)).astype(np.float32))
+    pos = torch.arange(S)[None, :]
+    out, _ = ta.apply_attention(tp, x, tc, RunConfig(device="cpu"), pos)
+    H, K, hd = tc.n_heads, tc.n_kv_heads, tc.resolved_head_dim
+    assert K < H
+    assert seen == [((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), True, True)]
+    assert out.shape == (B, S, tc.d_model)
 
 
 def test_k1_launcher_takes_cuda_tensors_only():

@@ -8,7 +8,10 @@ imports no JAX (the machine with the card has none); run it there with
 f32 comparisons are made with TF32 off; K1's tolerances are those of
 chip_smoke.py (f32 1e-5, bf16 2e-2), and K2's are the JAX kernel
 tests': against ``ref.ssd_ref`` f32 2e-3 and bf16 5e-2, against
-``models.ssm.ssd_chunked`` (f32) 2e-4.
+``models.ssm.ssd_chunked`` (f32) 2e-4. K1 takes k/v with K heads
+(H % K == 0); bf16 runs its tensor-core kernel, f32 its scalar one. K2's
+bf16 x with bf16 B/C runs its tensor-core scan, whose f32 state is held
+to f32's 2e-3 against ``ssd_ref`` as well.
 """
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import RunConfig, build  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
@@ -48,6 +52,36 @@ def test_k1_matches_plain(card, B, S, T, H, hd, dtype, causal):
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), expect.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K", [(2, 200, 200, 14, 2), (1, 77, 130, 14, 1),
+                                       (2, 128, 128, 4, 1), (1, 1, 1, 14, 2)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k1_gqa_matches_plain(card, B, S, T, H, K, hd, dtype, causal):
+    gen = torch.Generator(device=card).manual_seed(1)
+    q = torch.randn((B, S, H, hd), generator=gen, device=card).to(TORCH_DTYPE[dtype])
+    k, v = (torch.randn((B, T, K, hd), generator=gen, device=card).to(TORCH_DTYPE[dtype])
+            for _ in range(2))
+    before = ops.attention.launches
+    out = ops.attention(q, k, v, causal=causal)
+    assert ops.attention.launches == before + 1
+    expect = ref.attention_ref(q, k, v, causal=causal)
+    assert torch.equal(expect, ref.attention_ref(q, ref.repeat_kv(k, H), ref.repeat_kv(v, H),
+                                                 causal=causal))
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), expect.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_k1_refuses_kv_heads_that_do_not_divide_h(card):
+    q = torch.zeros((1, 8, 14, 64), device=card, dtype=torch.bfloat16)
+    kv = torch.zeros((1, 8, 4, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="divides H"):
+        ops.attention(q, kv, kv)
 
 
 @pytest.mark.cuda
@@ -125,6 +159,24 @@ def test_k2_matches_plain(card, b, s, h, p, n, chunk, dtypes, with_init):
         y_c, st_c = ssd_chunked(x, dt, A, B, C, chunk, init_state=init)
         torch.testing.assert_close(y, y_c, atol=2e-4, rtol=2e-4)
         torch.testing.assert_close(st, st_c, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [128, 96, 48, 12, 1])
+@pytest.mark.parametrize("p,n", [(64, 128), (64, 64), (16, 16)])
+def test_k2_bf16_tensor_core_path(card, chunk, p, n):
+    """Chunks and N that are not multiples of 16 are padded in shared memory."""
+    b, h = 2, 4
+    s = 2 * chunk if chunk > 1 else 7
+    x, dt, A, B, C, init = _ssd_inputs(card, b, s, h, p, n, torch.bfloat16, torch.bfloat16,
+                                       with_init=True)
+    assert ssd_mod.kernel_path(x.dtype, B.dtype) == "mma"
+    y, st = ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init)
+    y_ref, st_ref = ref.ssd_ref(x, dt, A, B, C, init_state=init)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(st, st_ref, atol=2e-3, rtol=2e-3)
 
 
 @pytest.mark.cuda

@@ -334,9 +334,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke):
 
 
 def test_k1_bound_at_the_serving_shape(chip_smoke):
-    ms, by = chip_smoke.attention_bound(8, 512, 512, 14, 64, torch.bfloat16, True)
+    # K-head k/v: q and o 2 * 7.34 MB, k and v 2 * 1.05 MB (K = 2), 16.8 MB
+    ms, by = chip_smoke.attention_bound(8, 512, 512, 14, 2, 64, torch.bfloat16, True)
     assert by == "bytes"
-    assert abs(ms - 4 * 8 * 512 * 14 * 64 * 2 / 3.35e12 * 1e3) < 1e-12   # 29.4 MB
-    ms32, by32 = chip_smoke.attention_bound(8, 512, 512, 14, 64, torch.float32, True)
+    assert abs(ms - (2 * 8 * 512 * 14 + 2 * 8 * 512 * 2) * 64 * 2 / 3.35e12 * 1e3) < 1e-12
+    full_h, _ = chip_smoke.attention_bound(8, 512, 512, 14, 14, 64, torch.bfloat16, True)
+    assert abs(full_h - 4 * 8 * 512 * 14 * 64 * 2 / 3.35e12 * 1e3) < 1e-12   # 29.4 MB
+    ms32, by32 = chip_smoke.attention_bound(8, 512, 512, 14, 2, 64, torch.float32, True)
     assert by32 == "operations"     # 3.77 GFLOP of f32 at 67 TFLOP/s
     assert abs(ms32 - 4 * 8 * 14 * 64 * (512 * 513 // 2) / 67e12 * 1e3) < 1e-12
