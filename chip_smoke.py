@@ -34,7 +34,24 @@ Phases; any failure exits non-zero and prints no result line:
    prefill logits with the kernels against the same prefill with their
    plain versions, and prefill(tokens[:k]) + decode(tokens[k:]) against
    forward(tokens).
-5. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+5. Train: K1 under a gradient (``FlashAttentionFn``: K1 forward,
+   tensor-op backward) at the training shape (B=8, S=512, H=14 over K=2
+   and K=H, hd=64; causal and not; f32 and bf16), dq, dk and dv against
+   ``torch.autograd.grad`` through the plain version (f32 1e-4, bf16
+   5e-2), with the backward's ms beside PyTorch's
+   ``scaled_dot_product_attention`` forward + backward (a yardstick
+   only). Then 8 AdamW steps of full-width qwen2-0.5b (f32 params, bf16
+   compute) on ``SyntheticLM`` batches of 8 x 512 tokens, built through
+   ``runtime.train``: the loss must fall, every loss and grad norm be
+   finite, K1 launch 24 times a step and K2 never. A checkpoint saved
+   after step 4 (async, then waited for) is restored into a fresh state
+   and step 5 taken again from it: loss and params equal the
+   uninterrupted step 5 within 1e-6. Last, an f32 step of the model cut
+   to 4 layers (full widths) with K1 against the same step with the
+   plain version: loss and grad norm within 1e-4 relative, updated
+   params within 1e-4, and every gradient leaf within 1e-4 of its
+   plain counterpart's largest value (the q/k/v projections' non-zero).
+6. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It needs CUDA: without a card it exits with code 2 before doing anything.
@@ -42,9 +59,12 @@ It needs CUDA: without a card it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -62,6 +82,11 @@ K2_REF_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # K2 vs ssd_ref (the JAX kern
 K2_CHUNKED_TOL = 2e-4             # f32 K2 vs ssd_chunked (the JAX production-path test's)
 PREFILL_PLAIN_TOL = 1e-3          # f32 prefill logits, kernels vs their plain versions
 DECODE_TOL = 2e-3                 # f32 prefill + decode vs forward
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, RESUME_AFTER = 8, 512, 8, 4
+K1_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # FlashAttentionFn vs plain autograd
+TRAIN_PLAIN_TOL = 1e-4            # f32 step, kernels vs plain: loss, grad norm, grads (rel), params
+RESUME_TOL = 1e-6                 # step 5 from the checkpoint vs the uninterrupted step 5
+TRAIN_PLAIN_LAYERS = 4            # depth of the f32 kernels-vs-plain step (full widths)
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
 # (bf16 on the tensor cores; f32 outside them).
@@ -473,6 +498,200 @@ def consistency(cfg, *, device: str, prefill_batch: int, prefill_len: int,
 
 
 # ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+def _grads_err(got, expect, tol):
+    """(max abs error, within tol abs + tol rel) over matching gradient tensors."""
+    err, ok = 0.0, True
+    for g, e in zip(got, expect):
+        diff = (g.float() - e.float()).abs()
+        err = max(err, float(diff.max()))
+        ok = ok and bool((diff <= tol + tol * e.float().abs()).all())
+    return err, ok
+
+
+def check_k1_grad(gen) -> dict:
+    """K1 under a gradient against autograd through its plain version, and the
+    backward's time beside SDPA forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    B, S, H, hd = TRAIN_BATCH, TRAIN_LEN, 14, 64
+    main = None
+    for K in (2, H):
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+                k, v = (torch.randn((B, S, K, hd), generator=gen, device="cuda").to(dtype)
+                        for _ in range(2))
+                dout = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+                inputs = [t.requires_grad_(True) for t in (q, k, v)]
+                before = ops.attention.launches
+                out = ops.attention(*inputs, causal=causal)
+                _check(ops.attention.launches == before + 1 and out.grad_fn is not None,
+                       "ops.attention under grad did not go through FlashAttentionFn")
+                got = torch.autograd.grad(out, inputs, dout)
+                expect = torch.autograd.grad(ref.attention_ref(*inputs, causal=causal),
+                                             inputs, dout)
+                torch.cuda.synchronize()
+                tol = K1_GRAD_TOL[_dtype_name(dtype)]
+                err, ok = _grads_err(got, expect, tol)
+                print(f"  K1 grad B={B} S={S} H={H} K={K} hd={hd} {_dtype_name(dtype)} "
+                      f"causal={causal}: dq/dk/dv max_abs_err={err:.3e} (tol {tol:g}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                _check(ok, f"K1's gradient disagrees with its plain version's: {err}")
+                if main is None:
+                    main = (q.detach(), k.detach(), v.detach(), out.detach(), dout, causal)
+
+    q, k, v, out, dout, causal = main          # bf16, causal, K = 2: the train step's
+    bwd_ms = time_ms(lambda: ref.attention_bwd(q, k, v, out, dout, causal=causal),
+                     iters=20, warmup=3)
+    fwd_ms = time_ms(lambda: ops.attention(q, k, v, causal=causal))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, ref.repeat_kv(k, H), ref.repeat_kv(v, H)))
+    dot = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+    sdpa_ms = time_ms(sdpa_fwd_bwd, iters=20, warmup=3)
+    print(f"  K1 at the training shape (bf16, causal, K=2): forward {fwd_ms:.4f} ms, "
+          f"backward (tensor ops) {bwd_ms:.4f} ms; SDPA forward + backward on "
+          f"full-H k/v {sdpa_ms:.4f} ms (yardstick; the port never calls it)", flush=True)
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms}
+
+
+def _max_abs_diff(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def train(cfg, *, device: str, batch: int, seq_len: int, steps: int, resume_after: int,
+          ckpt_dir) -> dict:
+    """``steps`` AdamW steps on ``SyntheticLM`` batches through ``runtime.train``.
+
+    A checkpoint saved after step ``resume_after`` is restored into a
+    fresh (meta) state and step ``resume_after + 1`` is taken again from
+    it. Returns the per-step metrics and times, the launches of each
+    kernel per step, the peak memory and the resume errors.
+    """
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import RunConfig
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.train import (TrainRunConfig, build_train_step,
+                                           init_sharded_state)
+    from repro_torch.tree import tree_map
+
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.bfloat16, device=device)
+    trc = TrainRunConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps))
+    step, state_meta, _, _, _, model = build_train_step(cfg, None, B=batch, S=seq_len,
+                                                        rc=rc, trc=trc)
+    state = init_sharded_state(model, None, None, SEED)
+    data = SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size, seed=SEED))
+    ckpt = Checkpointer(ckpt_dir, keep=1)
+
+    _sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    metrics, step_ms, launches = [], [], []
+    ops.attention.launches = ops.ssd.launches = 0
+    for i in range(1, steps + 1):
+        b = to_device(next(data), device)
+        before = _launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: n - before[k] for k, n in _launches().items()})
+        metrics.append({k: float(v) for k, v in met.items()})
+        if i == resume_after:
+            t0 = time.perf_counter()
+            ckpt.save(state, i)
+            ckpt.wait()
+            save_s = time.perf_counter() - t0
+        if i == resume_after + 1:
+            # held on the host, so that it takes no room in the card's peak memory
+            after_resume = tree_map(lambda t: t.to("cpu", copy=True), state.params)
+            batch_resume = b
+    total_launches = _launches()
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else None)
+    del state
+
+    t0 = time.perf_counter()
+    restored = ckpt.restore(state_meta, device=device)
+    restore_s = time.perf_counter() - t0
+    _check(int(restored.step) == resume_after, f"restored step {int(restored.step)}")
+    resumed, met = step(restored, batch_resume)
+    del restored
+    loss_err = abs(float(met["loss"]) - metrics[resume_after]["loss"])
+    params_err = _max_abs_diff(tree_map(lambda t: t.to("cpu"), resumed.params),
+                               after_resume)
+    timed = step_ms[1:] or step_ms
+    return {
+        "metrics": metrics, "step_ms": step_ms,
+        "median_step_ms": statistics.median(timed),
+        "tokens_per_s": batch * seq_len / (statistics.median(timed) / 1e3),
+        "launches_per_step": launches, "launches": total_launches,
+        "max_memory_allocated": peak, "save_s": save_s, "restore_s": restore_s,
+        "resume_loss_err": loss_err, "resume_params_err": params_err,
+    }
+
+
+def train_consistency(cfg, *, device: str, batch: int, seq_len: int) -> dict:
+    """f32 errors of one train step with the kernels against the same step with
+    their plain versions, from one state and one batch, and of its gradients
+    leaf by leaf (max abs error over the plain leaf's max abs value).
+
+    The gradients carry the check of K1's backward: at step 1 the learning
+    rate is 3e-6 and Adam's first step is sign-normalised, so the updated
+    params can differ by at most about 6e-6 whatever the gradients are.
+    """
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import RunConfig
+    from repro_torch.runtime.train import build_train_step, init_sharded_state, value_and_grad
+    from repro_torch.tree import tree_flatten_with_path
+
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device=device)
+    step, *_, model = build_train_step(cfg, None, B=batch, S=seq_len, rc=rc)
+    state = init_sharded_state(model, None, None, SEED)
+    b = to_device(next(SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size,
+                                              seed=SEED))), device)
+    new, met = step(state, b)
+    grads = tree_flatten_with_path(value_and_grad(model.loss, state.params, b)[1])
+    with plain_kernels():
+        new_plain, met_plain = step(state, b)
+        grads_plain = tree_flatten_with_path(
+            value_and_grad(model.loss, state.params, b)[1])
+
+    def rel(key):
+        return abs(float(met[key]) - float(met_plain[key])) / abs(float(met_plain[key]))
+    grads_rel, grads_scale = {}, {}
+    for key, e in grads_plain.items():
+        grads_scale[key] = float(e.abs().max())
+        err = float((grads[key] - e).abs().max())
+        grads_rel[key] = err / grads_scale[key] if grads_scale[key] else err
+    return {"loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
+            "params_abs": _max_abs_diff(new.params, new_plain.params),
+            "grads_rel": grads_rel, "grads_scale": grads_scale,
+            "loss": float(met["loss"])}
+
+
+# ---------------------------------------------------------------------------
+def _phase_done(n: int, t0: float, what: str = "") -> float:
+    """Print phase ``n``'s seconds since ``t0``; return the time now."""
+    now = time.perf_counter()
+    print(f"[{n}] {what + ' ' if what else ''}phase took {now - t0:.1f} s", flush=True)
+    return now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -486,6 +705,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     # 1. device and build
+    t_phase = time.perf_counter()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -498,12 +718,14 @@ def main() -> int:
         for line in res.ptxas.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    {res.name}: {line.strip()}")
+    t_phase = _phase_done(1, t_phase)
 
     # 2. K1 and K2 against their plain versions, and their times
     print("[2] K1 against its plain version", flush=True)
     k1 = check_k1(torch.Generator(device="cuda").manual_seed(SEED))
     print("[2] K2 against its plain versions", flush=True)
     k2 = check_k2(torch.Generator(device="cuda").manual_seed(SEED))
+    t_phase = _phase_done(2, t_phase)
 
     # 3 and 4, for each model: serve at full width in bf16, then f32 consistency
     served = {}
@@ -526,6 +748,7 @@ def main() -> int:
         served[kernel] = res
         del res
         torch.cuda.empty_cache()             # the bf16 model is gone before [4]
+        t_phase = _phase_done(3, t_phase, arch)
 
         errs = consistency(cfg, device="cuda", prefill_batch=SERVE_BATCH,
                            prefill_len=PROMPT_LEN, batch=2, seq_len=96, split=32)
@@ -537,9 +760,57 @@ def main() -> int:
                f"{arch} prefill+decode vs forward {errs['prefill_decode_vs_forward']} "
                f"> {DECODE_TOL}")
         torch.cuda.empty_cache()
+        t_phase = _phase_done(4, t_phase, arch)
 
-    # 5. results; the ok line is last
+    # 5. training: K1 under a gradient, full-width steps, resume, f32 kernels vs plain
+    print("[5] K1 under a gradient against its plain version's autograd", flush=True)
+    k1_grad = check_k1_grad(torch.Generator(device="cuda").manual_seed(SEED))
+    cfg = get_config(ARCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        res = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
+                    steps=TRAIN_STEPS, resume_after=RESUME_AFTER, ckpt_dir=ckpt_dir)
+    for i, (met, ms, la) in enumerate(zip(res["metrics"], res["step_ms"],
+                                          res["launches_per_step"]), 1):
+        print(f"[5] {ARCH} train step {i}: loss {met['loss']:.6f} grad_norm "
+              f"{met['grad_norm']:.6f} lr {met['lr']:.6e}, {ms:.3f} ms, launches {la}",
+              flush=True)
+    print(f"[5] {ARCH}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens: "
+          f"median step (2-{TRAIN_STEPS}) {res['median_step_ms']:.3f} ms, "
+          f"{res['tokens_per_s']:.1f} trained tokens/s, max_memory_allocated "
+          f"{res['max_memory_allocated']} B; checkpoint save {res['save_s']:.2f} s, "
+          f"restore {res['restore_s']:.2f} s; resume errors: loss "
+          f"{res['resume_loss_err']:.3e}, params {res['resume_params_err']:.3e}", flush=True)
+    losses = [m["loss"] for m in res["metrics"]]
+    _check(all(np.isfinite([m["loss"] for m in res["metrics"]]))
+           and all(np.isfinite([m["grad_norm"] for m in res["metrics"]])),
+           "non-finite loss or grad norm")
+    _check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    per_step = {"attention": cfg.n_layers, "ssd": 0}
+    _check(all(la == per_step for la in res["launches_per_step"]),
+           f"train steps launched {res['launches_per_step']}, not {per_step} each")
+    _check(res["launches"] == {k: n * TRAIN_STEPS for k, n in per_step.items()},
+           f"the train run launched {res['launches']}")
+    _check(res["resume_loss_err"] <= RESUME_TOL and res["resume_params_err"] <= RESUME_TOL,
+           f"step {RESUME_AFTER + 1} from the checkpoint differs: loss "
+           f"{res['resume_loss_err']}, params {res['resume_params_err']} > {RESUME_TOL}")
+    torch.cuda.empty_cache()
+    errs = train_consistency(dataclasses.replace(cfg, n_layers=TRAIN_PLAIN_LAYERS),
+                             device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN)
+    print(f"[5] {ARCH} cut to {TRAIN_PLAIN_LAYERS} layers: f32 train step, kernels vs "
+          f"plain: {json.dumps(errs)}", flush=True)
+    _check(errs["loss_rel"] <= TRAIN_PLAIN_TOL and errs["grad_norm_rel"] <= TRAIN_PLAIN_TOL
+           and errs["params_abs"] <= TRAIN_PLAIN_TOL
+           and max(errs["grads_rel"].values()) <= TRAIN_PLAIN_TOL,
+           f"f32 train step, kernels vs plain, exceeds {TRAIN_PLAIN_TOL}: {errs}")
+    _check(all(errs["grads_scale"][f"blocks/attn/{w}"] > 0 for w in ("wq", "wk", "wv")),
+           f"zero q/k/v projection gradient: {errs['grads_scale']}")
+    torch.cuda.empty_cache()
+    _phase_done(5, t_phase)
+
+    # 6. results; the ok line is last
     k1["launches"] = served["attention"]["prefill_launches"]["attention"]
+    k1["train_launches_per_step"] = res["launches_per_step"][0]["attention"]
+    k1.update({f"train_{key}": val for key, val in k1_grad.items()})
     k2["launches"] = served["ssd"]["prefill_launches"]["ssd"]
     print(json.dumps({"kernels": [k1, k2]}))
     print(smi)

@@ -41,7 +41,7 @@ def busy_us(events) -> float:
     return total
 
 
-def report(name, prof, host_ms, out_path):
+def report(name, prof, host_ms, out_path=None):
     from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = busy_us(kernels) / 1e3
@@ -54,7 +54,8 @@ def report(name, prof, host_ms, out_path):
                       "idle_share": 1.0 - busy_ms / host_ms, "kernels": len(kernels)}))
     for kname, (us, n) in top:
         print(f"    {us / 1e3:9.3f} ms  {n:5d}x  {kname[:110]}")
-    prof.export_chrome_trace(str(out_path))
+    if out_path is not None:
+        prof.export_chrome_trace(str(out_path))
 
 
 DECODE_STEPS = 8

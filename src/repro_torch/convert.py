@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.ssm import SSMState
+from repro_torch.optim.adamw import TrainState
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -28,6 +29,14 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """A params tree of numpy arrays -> the same tree of tensors on ``device``."""
     return {k: params_from_jax(v, device) if isinstance(v, dict)
             else tensor_from_numpy(v, device) for k, v in tree.items()}
+
+
+def state_from_jax(state, device="cuda") -> TrainState:
+    """A JAX ``TrainState`` (params, m, v, step; numpy leaves) -> the port's."""
+    return TrainState(params=params_from_jax(state.params, device),
+                      m=params_from_jax(state.m, device),
+                      v=params_from_jax(state.v, device),
+                      step=tensor_from_numpy(state.step, device))
 
 
 def cache_from_jax(cache: Dict[str, Any], device="cuda") -> Dict[str, Any]:

@@ -1,4 +1,5 @@
-"""K1 flash attention forward: the launcher of the Hopper kernel.
+"""K1 flash attention forward: the launcher of the Hopper kernel, and its
+autograd Function.
 
 The kernel, ``csrc/flash_attention.cu``, replaces the JAX package's
 Pallas kernel ``repro/kernels/flash_attention.py::_kernel``; its note
@@ -9,6 +10,11 @@ KV head h // (H // K), and K == H is the full-H call. bf16 inputs run the
 tensor-core kernel, f32 inputs the scalar one. It takes CUDA tensors
 only; ``ops.attention`` sends a CPU tensor to the plain version,
 ``ref.attention_ref``.
+
+``FlashAttentionFn`` puts K1 under a gradient: its forward launches K1
+and its backward is ``ref.attention_bwd``, tensor ops that recompute P
+(the Pallas kernel has no backward; the JAX model trains through XLA's
+autodiff of its jnp attention).
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -87,3 +93,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"K1 launch failed: CUDA error {rc} "
                            f"({error_string(rc).decode()})")
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K1 forward, tensor-op backward (``ref.attention_bwd``).
+
+    ``apply(q, k, v, causal)`` launches K1 once and saves q, k, v and
+    the output for the backward, which launches no K1.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = ref.attention_bwd(q, k, v, out, dout, causal=ctx.causal)
+        return dq, dk, dv, None

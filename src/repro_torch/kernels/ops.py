@@ -7,6 +7,13 @@ PyTorch version. There is no fallback from one to the other.
 Each kernel's entry here carries ``launches``, a plain int that counts
 the kernel launches made through it, so a run can show that its main
 path went through the kernel.
+
+A CUDA attention call always goes through ``FlashAttentionFn`` (K1
+forward, tensor-op backward), which records a graph only when a
+gradient is taken. Under a gradient (grad mode on and an input that
+requires grad) a CUDA SSD scan raises until the SSM-training slice
+gives K2 a backward, rather than return a tensor cut off from the
+graph.
 """
 from __future__ import annotations
 
@@ -19,15 +26,21 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd_mod
 
 
+def _under_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
     """Attention (B,S,H,hd) x (B,T,K,hd) x2 -> (B,S,H,hd), H % K == 0.
 
     Query head h reads KV head h // (H // K); K == H is the full-H form.
-    CUDA: K1 (``csrc/flash_attention.cu``). CPU: ``ref.attention_ref``.
+    CUDA: K1 (``csrc/flash_attention.cu``) through ``FlashAttentionFn``.
+    CPU: ``ref.attention_ref``, whose autograd is the reference's.
     """
     if q.device.type == "cuda":
-        out = fa.flash_attention(q, k, v, causal=causal)
+        out = fa.FlashAttentionFn.apply(q, k, v, causal)
         attention.launches += 1
         return out
     if q.device.type == "cpu":
@@ -43,10 +56,16 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         init_state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> (y (b,s,h,p) in x's dtype, final_state (b,h,p,n) f32).
 
-    CUDA: K2 (``csrc/ssd_scan.cu``). CPU: ``models.ssm.ssd_chunked``, the
-    JAX package's ``ops.ssd(impl="jnp")`` path.
+    CUDA: K2 (``csrc/ssd_scan.cu``); under a gradient it raises
+    ``NotImplementedError`` (K2 has no backward yet). CPU:
+    ``models.ssm.ssd_chunked``, the JAX package's ``ops.ssd(impl="jnp")``
+    path.
     """
     if x.device.type == "cuda":
+        if _under_grad(x, dt, A, B, C, init_state):
+            raise NotImplementedError(
+                "a gradient through K2 (the SSD scan) comes with the SSM-training "
+                "slice; K2 has no backward yet")
         out = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init_state)
         ssd.launches += 1
         return out

@@ -47,6 +47,49 @@ def attention_ref(q, k, v, *, causal: bool = True):
     return torch.einsum("bhst,bthd->bshd", p, v.float()).to(v.dtype)
 
 
+def attention_bwd(q, k, v, out, dout, *, causal: bool = True):
+    """Gradients of ``attention_ref`` -> (dq, dk, dv) in q's, k's and v's dtypes.
+
+    The backward of K1 under ``kernels.flash_attention.FlashAttentionFn``:
+    the counterpart of what XLA's autodiff computes for the JAX model's
+    attention, written out in tensor ops (the Pallas kernel has no
+    backward). ``out`` is the forward's output and ``dout`` its gradient,
+    both (B, S, H, hd); k/v are (B, T, K, hd), H % K == 0. In f32, with
+    P recomputed from q and k under the reference's -1e30 causal mask:
+
+      dV = P^T dO,  dP = dO V^T,  dS = P * (dP - rowsum(dO * O)),
+      dQ = dS K / sqrt(hd),  dK = dS^T Q / sqrt(hd),
+
+    and dK, dV summed over the H / K query heads that read each KV head.
+    """
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if H % K:
+        raise ValueError(f"attention takes a number of KV heads that divides H; "
+                         f"H={H}, K={K}")
+    scale = 1.0 / math.sqrt(hd)
+    qf, dof = q.float(), dout.float()
+    kf, vf = repeat_kv(k, H).float(), repeat_kv(v, H).float()
+    s = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    if causal:
+        mask = (torch.arange(S, device=s.device)[:, None]
+                >= torch.arange(T, device=s.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    del s
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    dp = torch.einsum("bshd,bthd->bhst", dof, vf)
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]     # (B, H, S, 1)
+    ds = p * (dp - delta)
+    del p, dp
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
+    G = H // K
+    dk = dk.reshape(B, T, K, G, hd).sum(3)
+    dv = dv.reshape(B, T, K, G, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_ref(x, dt, A, B, C, init_state=None):
     """Sequential SSD recurrence (plain K2; the literal state-space definition).
 

@@ -135,3 +135,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab_size: int) -> torch.Tensor:
+    """CE in f32 with padded-vocab masking. logits: (..., Vp), labels ints.
+
+    The padded slots (index >= ``vocab_size``) are set to -1e9 before the
+    log-sum-exp, as in the JAX package, so they take no probability and
+    receive no gradient.
+    """
+    vp = logits.shape[-1]
+    logits = logits.float()
+    if vp > vocab_size:
+        pad_mask = torch.arange(vp, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad_mask, -1e9)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold

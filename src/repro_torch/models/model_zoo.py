@@ -1,4 +1,4 @@
-"""Public model API: ArchConfig -> init / apply / prefill / decode callables."""
+"""Public model API: ArchConfig -> init / loss / apply / prefill / decode callables."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -29,6 +29,14 @@ class Model:
     def init_eval_shape(self) -> Dict[str, Any]:
         """The params tree as meta tensors: shapes and dtypes, no storage."""
         return transformer.init_params(self.cfg, None, self.rc.replace(device="meta"))
+
+    # -- training -------------------------------------------------------
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean CE of ``batch["labels"]`` (B, S) under the logits of
+        ``batch["tokens"]``: an f32 scalar that carries the graph back to
+        ``params`` when they require grad."""
+        logits, aux, _ = self.apply(params, batch)
+        return transformer.lm_loss(logits, batch["labels"], self.cfg, aux)
 
     # -- forward ----------------------------------------------------------
     def apply(self, params, batch, return_cache: bool = False,

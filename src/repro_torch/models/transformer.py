@@ -15,7 +15,7 @@ import torch
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init,
-                                       init_mlp, rms_norm)
+                                       init_mlp, rms_norm, softmax_cross_entropy)
 
 # SSM / router leaves that stay f32 through compute-dtype casting
 _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "router", "gate")
@@ -243,3 +243,14 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: torch.Tensor):
     new_cache = dict(cache)
     new_cache["pos"] = index + 1
     return _logits(params, h, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def lm_loss(logits, labels, cfg, aux=None, aux_weight: float = 0.01):
+    """Mean next-token CE over (B, S), plus ``aux_weight * aux`` when given."""
+    ce = softmax_cross_entropy(logits, labels, cfg.vocab_size).mean()
+    if aux is not None:
+        ce = ce + aux_weight * aux
+    return ce

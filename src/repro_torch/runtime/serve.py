@@ -12,10 +12,10 @@ from repro_torch.models import RunConfig, build
 from repro_torch.runtime.specs import decode_batch_specs, prefill_batch_specs
 
 
-def _require_no_mesh(mesh) -> None:
+def _require_no_mesh(mesh, what: str = "serving") -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded serving (mesh != None) is ported with the parallel/ slice")
+            f"sharded {what} (mesh != None) is ported with the parallel/ slice")
 
 
 def build_prefill_step(cfg, mesh=None, *, B: int, S: int,

@@ -19,9 +19,15 @@ def _require_tokens(cfg: ArchConfig) -> None:
             f"the {cfg.frontend} frontend is ported with its family's slice")
 
 
-def prefill_batch_specs(cfg: ArchConfig, B: int, S: int) -> Dict[str, torch.Tensor]:
+def train_batch_specs(cfg: ArchConfig, B: int, S: int) -> Dict[str, torch.Tensor]:
     _require_tokens(cfg)
-    return {"tokens": _spec((B, S), torch.int32)}
+    return {"tokens": _spec((B, S), torch.int32), "labels": _spec((B, S), torch.int32)}
+
+
+def prefill_batch_specs(cfg: ArchConfig, B: int, S: int) -> Dict[str, torch.Tensor]:
+    specs = train_batch_specs(cfg, B, S)
+    specs.pop("labels")
+    return specs
 
 
 def decode_batch_specs(cfg: ArchConfig, B: int) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,88 @@
+"""Trees of tensors: the port's counterpart of JAX pytrees.
+
+A node is a dict (children in sorted-key order, as ``jax.tree`` takes
+them), a NamedTuple (in field order) or a tuple or list; anything else
+is a leaf. Each leaf has JAX's path key: a dict key as itself, a
+NamedTuple field as ``.<field>``, a sequence index as its number,
+joined with ``/`` (a ``TrainState`` gives ``.params/blocks/ln1``,
+``.m/embed``, ``.step``). The leaf order and these keys are defined
+here only; the checkpointer writes the keys, so its files line up with
+the JAX package's.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+IsLeaf = Optional[Callable[[Any], bool]]
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _children(tree, is_leaf: IsLeaf):
+    """[(path part, child)] of a node, in leaf order; None for a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return None
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
+
+def _join(path: str, part: str) -> str:
+    return f"{path}/{part}" if path else part
+
+
+def tree_flatten_with_path(tree, is_leaf: IsLeaf = None) -> Dict[str, Any]:
+    """{path key: leaf}, in leaf order."""
+    out: Dict[str, Any] = {}
+
+    def walk(t, path):
+        kids = _children(t, is_leaf)
+        if kids is None:
+            out[path] = t
+            return
+        for part, sub in kids:
+            walk(sub, _join(path, part))
+    walk(tree, "")
+    return out
+
+
+def tree_rebuild(tree, values: Dict[str, Any], is_leaf: IsLeaf = None):
+    """``tree``'s structure with the leaf at each path key replaced by
+    ``values[key]`` (a KeyError names a key ``values`` lacks)."""
+    def build(t, path):
+        if _children(t, is_leaf) is None:
+            return values[path]
+        if isinstance(t, dict):
+            return {k: build(v, _join(path, str(k))) for k, v in t.items()}
+        if _is_namedtuple(t):
+            return type(t)(*(build(getattr(t, f), _join(path, f".{f}")) for f in t._fields))
+        return type(t)(build(v, _join(path, str(i))) for i, v in enumerate(t))
+    return build(tree, "")
+
+
+def tree_leaves(tree, is_leaf: IsLeaf = None) -> List[Any]:
+    return list(tree_flatten_with_path(tree, is_leaf).values())
+
+
+def tree_unflatten(tree, leaves: Iterable):
+    """A tree of ``tree``'s structure holding ``leaves`` (in ``tree_leaves`` order)."""
+    keys = list(tree_flatten_with_path(tree))
+    leaves = list(leaves)
+    if len(leaves) != len(keys):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(keys)}")
+    return tree_rebuild(tree, dict(zip(keys, leaves)))
+
+
+def tree_map(fn: Callable, tree, *rest, is_leaf: IsLeaf = None):
+    """``fn`` applied leaf by leaf over trees of one structure (the first's);
+    ``is_leaf`` stops the walk at the nodes it accepts, as in ``jax.tree.map``."""
+    flat = tree_flatten_with_path(tree, is_leaf)
+    others = [tree_flatten_with_path(r) for r in rest]
+    return tree_rebuild(tree, {k: fn(v, *(o[k] for o in others)) for k, v in flat.items()},
+                        is_leaf)

@@ -15,6 +15,14 @@ computes them in f32, so ``apply_attention`` prefill differs by that
 rounding only: the largest difference measured at these shapes (five
 seeds, G = 2 and 7) was one bf16 ulp of the output, 3.9e-3 at
 |out| ~ 1. The bf16 tolerance is 2e-2, absolute and relative.
+
+K1's backward (``ref.attention_bwd``, the backward of
+``FlashAttentionFn``) is held in f32 to 1e-5 against autograd through
+``attention_ref`` and against ``jax.vjp`` of the JAX oracle on
+``repeat_kv``'d inputs (dK and dV summed over each KV head's group);
+in bf16 to 5e-2 against autograd, the tolerance ``chip_smoke.py`` uses
+on the card (the backward reads the forward's bf16-rounded output in
+rowsum(dO * O), where autograd uses the f32 one).
 """
 import dataclasses
 
@@ -285,3 +293,96 @@ def test_bf16_moves_bit_for_bit():
     t = tensor_from_numpy(a, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
+
+
+# ---------------------------------------------------------------------------
+# K1 under a gradient: the backward and FlashAttentionFn's wiring
+# ---------------------------------------------------------------------------
+BWD_CASES = [
+    # (B, S, T, H, K, hd, causal)
+    (2, 24, 24, 4, 4, 32, True),      # K == H
+    (2, 24, 24, 4, 2, 32, True),      # GQA, G = 2
+    (2, 24, 24, 4, 1, 32, False),     # one KV head
+    (2, 20, 20, 14, 2, 64, True),     # qwen2-0.5b's G = 7
+    (1, 16, 40, 4, 2, 32, False),     # S < T, not causal
+    (1, 16, 40, 4, 2, 64, True),      # S < T, causal
+]
+
+
+def _bwd_inputs(rng, B, S, T, H, K, hd, dtype="float32"):
+    return [_pair(rng, shape, dtype) for shape in
+            ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd), (B, S, H, hd))]
+
+
+def _autograd_grads(q, k, v, dout, causal):
+    inputs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = tref.attention_ref(*inputs, causal=causal)
+    return torch.autograd.grad(out, inputs, dout)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", BWD_CASES)
+def test_attention_bwd_matches_autograd_and_jax_vjp(B, S, T, H, K, hd, causal):
+    rng = np.random.default_rng(B * 100 + S + T + H + K + hd)
+    (qj, qt), (kj, kt), (vj, vt), (dj, dt) = _bwd_inputs(rng, B, S, T, H, K, hd)
+    out = tref.attention_ref(qt, kt, vt, causal=causal)
+    got = tref.attention_bwd(qt, kt, vt, out, dt, causal=causal)
+    assert [tuple(g.shape) for g in got] == [tuple(qt.shape), tuple(kt.shape),
+                                             tuple(vt.shape)]
+    for g, e in zip(got, _autograd_grads(qt, kt, vt, dt, causal)):
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=1e-5)
+    kf, vf = ja.repeat_kv(kj, H), ja.repeat_kv(vj, H)
+    _, vjp = jax.vjp(lambda q, k, v: jref.attention_ref(q, k, v, causal=causal), qj, kf, vf)
+    gq, gk, gv = vjp(dj)
+    G = H // K
+    gk = np.asarray(gk).reshape(B, T, K, G, hd).sum(3)
+    gv = np.asarray(gv).reshape(B, T, K, G, hd).sum(3)
+    for g, e in zip(got, (gq, gk, gv)):
+        _close(e, g, 1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_bwd_bf16_matches_autograd(causal):
+    rng = np.random.default_rng(31)
+    (_, qt), (_, kt), (_, vt), (_, dt) = _bwd_inputs(rng, 2, 32, 32, 14, 2, 64, "bfloat16")
+    out = tref.attention_ref(qt, kt, vt, causal=causal)
+    got = tref.attention_bwd(qt, kt, vt, out, dt, causal=causal)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3
+    for g, e in zip(got, _autograd_grads(qt, kt, vt, dt, causal)):
+        torch.testing.assert_close(g.float(), e.float(), atol=5e-2, rtol=5e-2)
+
+
+def test_attention_bwd_refuses_kv_heads_that_do_not_divide_h():
+    q = torch.zeros((1, 8, 6, 32))
+    kv = torch.zeros((1, 8, 4, 32))
+    with pytest.raises(ValueError, match="divides H"):
+        tref.attention_bwd(q, kv, kv, q, q)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fn_wiring(monkeypatch, causal):
+    """FlashAttentionFn with its K1 launch stood in for by the plain version
+    (there is no card here): the forward's output and the backward's
+    gradients are those of autograd through the plain version."""
+    monkeypatch.setattr(tfa, "flash_attention", tref.attention_ref)
+    rng = np.random.default_rng(32)
+    (_, qt), (_, kt), (_, vt), (_, dt) = _bwd_inputs(rng, 2, 24, 24, 4, 2, 32)
+    inputs = [t.requires_grad_(True) for t in (qt, kt, vt)]
+    out = tfa.FlashAttentionFn.apply(*inputs, causal)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), tref.attention_ref(qt, kt, vt, causal=causal).detach())
+    got = torch.autograd.grad(out, inputs, dt)
+    for g, e in zip(got, _autograd_grads(qt, kt, vt, dt, causal)):
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=1e-5)
+
+
+def test_cpu_attention_under_grad_is_the_plain_autograd():
+    rng = np.random.default_rng(33)
+    (_, qt), (_, kt), (_, vt), (_, dt) = _bwd_inputs(rng, 1, 12, 12, 4, 2, 32)
+    inputs = [t.requires_grad_(True) for t in (qt, kt, vt)]
+    before = ops.attention.launches
+    out = ops.attention(*inputs, causal=True)
+    assert ops.attention.launches == before and out.grad_fn is not None
+    for g, e in zip(torch.autograd.grad(out, inputs, dt),
+                    _autograd_grads(qt, kt, vt, dt, True)):
+        assert torch.equal(g, e)
+

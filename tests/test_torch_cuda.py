@@ -12,6 +12,13 @@ tests': against ``ref.ssd_ref`` f32 2e-3 and bf16 5e-2, against
 (H % K == 0); bf16 runs its tensor-core kernel, f32 its scalar one. K2's
 bf16 x with bf16 B/C runs its tensor-core scan, whose f32 state is held
 to f32's 2e-3 against ``ssd_ref`` as well.
+
+Training: ``ops.attention`` on CUDA tensors that require grad goes
+through ``FlashAttentionFn`` (K1 forward, ``ref.attention_bwd``
+backward); its dq, dk, dv are held against autograd through the plain
+version (f32 1e-4, bf16 5e-2, as in ``chip_smoke.py``) and against
+``attention_bwd`` on K1's own output (1e-6: the same function of the
+same tensors). A CUDA SSD scan under a gradient raises.
 """
 import numpy as np
 import pytest
@@ -23,6 +30,9 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import RunConfig, build  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from repro_torch.optim.adamw import OptConfig  # noqa: E402
+from repro_torch.runtime.train import (TrainRunConfig, build_train_step,  # noqa: E402
+                                       init_sharded_state, value_and_grad)
 
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -208,3 +218,81 @@ def test_reduced_mamba2_decode_matches_forward_on_card(card):
     assert ops.ssd.launches == before + cfg.n_layers      # decode launches none
     err = (torch.cat(outs, dim=1) - full).abs().max()
     assert float(err) < 2e-3, float(err)
+
+
+# ---------------------------------------------------------------------------
+# training: K1 under a gradient, K2 refusing one, a reduced train step
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd", [(2, 200, 200, 14, 2, 64), (2, 128, 128, 4, 4, 32),
+                                          (1, 77, 130, 4, 1, 128), (2, 64, 64, 14, 14, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fn_grads_match_plain(card, B, S, T, H, K, hd, dtype, causal):
+    gen = torch.Generator(device=card).manual_seed(2)
+    dt = TORCH_DTYPE[dtype]
+    q = torch.randn((B, S, H, hd), generator=gen, device=card).to(dt).requires_grad_(True)
+    k, v = (torch.randn((B, T, K, hd), generator=gen, device=card).to(dt).requires_grad_(True)
+            for _ in range(2))
+    dout = torch.randn((B, S, H, hd), generator=gen, device=card).to(dt)
+    before = ops.attention.launches
+    out = ops.attention(q, k, v, causal=causal)
+    assert ops.attention.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert ops.attention.launches == before + 1          # the backward launches no K1
+    direct = ref.attention_bwd(q.detach(), k.detach(), v.detach(), out.detach(), dout,
+                               causal=causal)
+    plain = torch.autograd.grad(ref.attention_ref(q, k, v, causal=causal), (q, k, v), dout)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for g, d, e in zip(got, direct, plain):
+        assert g.dtype == dt and g.abs().sum() > 0
+        torch.testing.assert_close(g, d, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(g.float(), e.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_attention_without_grad_launches_k1_plainly(card):
+    q = torch.randn((1, 16, 4, 64), device=card, requires_grad=True)
+    with torch.no_grad():
+        out = ops.attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    assert out.grad_fn is None and not out.requires_grad
+
+
+@pytest.mark.cuda
+def test_ssd_raises_under_grad_on_card(card):
+    x, dt, A, B, C, _ = _ssd_inputs(card, 1, 32, 2, 16, 16, torch.float32, torch.float32)
+    before = ops.ssd.launches
+    with pytest.raises(NotImplementedError, match="SSM-training"):
+        ops.ssd(x.requires_grad_(True), dt, A, B, C, chunk=16)
+    with torch.no_grad():
+        ops.ssd(x, dt, A, B, C, chunk=16)
+    assert ops.ssd.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_reduced_qwen2_trains_on_card(card, compute):
+    """Two steps on one batch: the loss falls, K1 launches once per layer and
+    step, and the q/k/v projections get non-zero gradients through K1."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=TORCH_DTYPE[compute],
+                   device="cuda")
+    step, *_, model = build_train_step(
+        cfg, None, B=2, S=32, rc=rc,
+        trc=TrainRunConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)))
+    state = init_sharded_state(model, None, None, seed=0)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32))
+             .to(card) for k in ("tokens", "labels")}
+    _, grads = value_and_grad(model.loss, state.params, batch)
+    for name in ("wq", "wk", "wv", "wo"):
+        assert float(grads["blocks"]["attn"][name].abs().sum()) > 0, name
+    before = ops.attention.launches
+    state, m1 = step(state, batch)
+    state, m2 = step(state, batch)
+    assert ops.attention.launches == before + 2 * cfg.n_layers
+    assert bool(torch.isfinite(m1["loss"])) and bool(torch.isfinite(m2["grad_norm"]))
+    assert float(m2["loss"]) < float(m1["loss"])
+    assert int(state.step) == 2
+

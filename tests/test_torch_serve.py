@@ -290,7 +290,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 30, mods\n"
+        "training = {'repro_torch.optim.adamw', 'repro_torch.parallel.compression',\n"
+        "            'repro_torch.runtime.train', 'repro_torch.data.pipeline',\n"
+        "            'repro_torch.checkpoint.checkpointer', 'repro_torch.tree'}\n"
+        "assert training <= set(mods), sorted(training - set(mods))\n"
         "print(len(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
