@@ -9,31 +9,40 @@ Phases; any failure exits non-zero and prints no result line:
    every kernel in ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each,
    all started together) and print the build seconds and ptxas report.
 2. Kernels: K1 (flash attention) against its plain version at the
-   serving shape of qwen2-0.5b (B=8, S=512, H=14 query heads over K=2
-   KV heads, hd=64; causal and not, bf16 and f32), at K = H and K = 1,
-   at a ragged S and T and at head_dim 32 and 128. Timed with CUDA
-   events beside the plain version, PyTorch's
+   prefill shape of each served model with attention (B=8, S=512):
+   qwen2-0.5b (H=14 query heads over K=2 KV heads, hd=64; causal and
+   not, bf16 and f32), zamba2-1.2b's shared block (H=K=32, hd=64) and
+   gemma-7b (H=K=16, hd=256; causal and not, bf16 and f32); at K = H
+   and K = 1, at a ragged S and T (also at hd 256 with GQA) and at
+   head_dim 32 and 128. Each of the three prefill shapes is timed with
+   CUDA events beside the plain version, PyTorch's
    ``scaled_dot_product_attention`` on the full-H (``repeat_kv``) k/v
    (a yardstick only; the port never calls it) and the bound. K2 (the
    SSD scan) against ``ref.ssd_ref`` (f32 2e-3, bf16 5e-2) and, in f32,
-   ``models.ssm.ssd_chunked`` (2e-4), y and final state, at the serving
-   shape of mamba2-2.7b (B=8, S=512, H=80, P=64, N=128, chunk 128), at
-   chunks 96, 48, 12 and 1, at (P, N) = (64, 64), (16, 16) and the JAX
-   kernel tests' shapes, with bf16 x and f32 B/C, and with an initial
-   state; each case prints the kernel its dtypes chose (``mma``: tensor
-   cores, bf16 x and B/C; ``scalar``: any f32 operand). Timed beside
-   both plain versions and the bound (no single PyTorch call computes
-   it).
-3. Serve: full-width qwen2-0.5b, then full-width mamba2-2.7b, in bf16
-   with seeded random weights, built through ``runtime.serve``, each
+   ``models.ssm.ssd_chunked`` (2e-4), y and final state, at the prefill
+   shapes of mamba2-2.7b (B=8, S=512, H=80, P=64, N=128, chunk 128) and
+   zamba2-1.2b (H=64, P=64, N=64), at chunks 96, 48, 12 and 1, at
+   (P, N) = (16, 16) and the JAX kernel tests' shapes, with bf16 x and
+   f32 B/C, and with an initial state; each case prints the kernel its
+   dtypes chose (``mma``: tensor cores, bf16 x and B/C; ``scalar``: any
+   f32 operand). Both prefill shapes are timed beside ``ssd_chunked``
+   and the bound (and mamba2's beside ``ssd_ref``; no single PyTorch
+   call computes it).
+3. Serve: full-width qwen2-0.5b, mamba2-2.7b, zamba2-1.2b (hybrid: 38
+   Mamba2 layers and one shared attention block applied after every
+   6th) and gemma-7b (head_dim 256), each at full depth, in bf16 with
+   seeded random weights, built through ``runtime.serve``, each
    answering 8 requests of 512-token prompts: one prefill, then greedy
-   decode steps (64 each). K1 must launch once per layer in the qwen2
-   prefill and K2 once per layer in the mamba2 prefill, and neither
-   anywhere else.
-4. Consistency at full width in f32 with TF32 off, for each model:
-   prefill logits with the kernels against the same prefill with their
-   plain versions, and prefill(tokens[:k]) + decode(tokens[k:]) against
-   forward(tokens).
+   decode steps (64 each). The counts are set to 0 before each model's
+   timed request; its prefill and its whole request must launch K1 and
+   K2 exactly ``expected_launches(cfg)`` times: K1 once per attention
+   layer or shared-block application, K2 once per Mamba2 layer, and
+   neither in decode.
+4. Consistency in f32 with TF32 off, for each model at full width (and
+   full depth, but gemma-7b cut to 4 layers: its f32 params alone are
+   34 GB): prefill logits with the kernels against the same prefill
+   with their plain versions, and prefill(tokens[:k]) +
+   decode(tokens[k:]) against forward(tokens).
 5. Train: K1 under a gradient (``FlashAttentionFn``: K1 forward,
    tensor-op backward) at the training shape (B=8, S=512, H=14 over K=2
    and K=H, hd=64; causal and not; f32 and bf16), dq, dk and dv against
@@ -51,8 +60,10 @@ Phases; any failure exits non-zero and prints no result line:
    plain version: loss and grad norm within 1e-4 relative, updated
    params within 1e-4, and every gradient leaf within 1e-4 of its
    plain counterpart's largest value (the q/k/v projections' non-zero).
-6. A ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": ...}`` line.
+6. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
+   over the four served models' prefills, ``launches_by_arch`` per model,
+   ``at`` its numbers at each model's prefill shape), the ``nvidia-smi``
+   line, and last the ``{"ok": true, "device": ...}`` line.
 
 It needs CUDA: without a card it exits with code 2 before doing anything.
 """
@@ -74,8 +85,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
-ARCH = "qwen2-0.5b"
-SSM_ARCH = "mamba2-2.7b"
+ARCH = "qwen2-0.5b"               # the trained model, and K1's first timed shape
+SSM_ARCH = "mamba2-2.7b"          # K2's first timed shape
+SERVE_ARCHS = ("qwen2-0.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b")
+CONSISTENCY_LAYERS = {"gemma-7b": 4}   # depth cut of phase 4 (full widths)
+# the bf16 causal prefill shape each model hands a kernel: K1 (B, S, T, H, K, hd),
+# K2 (b, s, h, p, n, chunk)
+K1_SHAPES = {"qwen2-0.5b": (8, 512, 512, 14, 2, 64),
+             "zamba2-1.2b": (8, 512, 512, 32, 32, 64),
+             "gemma-7b": (8, 512, 512, 16, 16, 256)}
+K2_SHAPES = {"mamba2-2.7b": (8, 512, 80, 64, 128, 128),
+             "zamba2-1.2b": (8, 512, 64, 64, 64, 128)}
 SERVE_BATCH, PROMPT_LEN, DECODE_STEPS = 8, 512, 64
 K1_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 K2_REF_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # K2 vs ssd_ref (the JAX kernel test's)
@@ -148,29 +168,48 @@ def time_ms(fn, iters: int = 100, warmup: int = 10, queued: bool = True) -> floa
     return start.elapsed_time(end) / iters
 
 
-def check_k1(gen) -> dict:
-    """Hold K1 against its plain version on the card; time the serving shape."""
-    import torch
+def _sdpa_ms(q, k, v, causal) -> float:
+    """PyTorch's ``scaled_dot_product_attention`` on full-H (``repeat_kv``)
+    k/v, the yardstick of the runs before the GQA-folded K1."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    H = q.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, ref.repeat_kv(k, H), ref.repeat_kv(v, H)))
+    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+
+
+def check_k1(gen) -> dict:
+    """Hold K1 against its plain version on the card; time each model's
+    prefill shape (``K1_SHAPES``)."""
+    import torch
     from repro_torch.kernels import ops, ref
 
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         # (B, S, T, H, K, hd, dtype, causal): K KV heads, H % K == 0
-        (8, 512, 512, 14, 2, 64, torch.bfloat16, True),    # the serving prefill
-        (8, 512, 512, 14, 2, 64, torch.bfloat16, False),
-        (8, 512, 512, 14, 2, 64, torch.float32, True),
-        (8, 512, 512, 14, 2, 64, torch.float32, False),
-        (8, 512, 512, 14, 14, 64, torch.bfloat16, True),   # full-H k/v (K == H)
-        (2, 200, 200, 4, 2, 64, torch.bfloat16, True),     # ragged S
-        (2, 200, 200, 4, 2, 64, torch.float32, True),
-        (2, 200, 333, 4, 4, 64, torch.float32, False),     # ragged T != S
-        (2, 200, 333, 4, 1, 64, torch.bfloat16, False),
-        (2, 256, 256, 8, 1, 32, torch.bfloat16, True),
-        (2, 256, 256, 8, 2, 32, torch.float32, True),
-        (2, 256, 256, 8, 2, 128, torch.bfloat16, True),
-        (2, 256, 256, 8, 1, 128, torch.float32, False),
+        (8, 512, 512, 14, 2, 64, bf16, True),      # qwen2-0.5b's prefill
+        (8, 512, 512, 14, 2, 64, bf16, False),
+        (8, 512, 512, 14, 2, 64, f32, True),
+        (8, 512, 512, 14, 2, 64, f32, False),
+        (8, 512, 512, 14, 14, 64, bf16, True),     # full-H k/v (K == H)
+        (8, 512, 512, 32, 32, 64, bf16, True),     # zamba2-1.2b's shared block
+        (8, 512, 512, 16, 16, 256, bf16, True),    # gemma-7b's prefill, hd 256
+        (8, 512, 512, 16, 16, 256, bf16, False),
+        (8, 512, 512, 16, 16, 256, f32, True),
+        (8, 512, 512, 16, 16, 256, f32, False),
+        (2, 200, 333, 8, 2, 256, bf16, True),      # hd 256, ragged S != T, GQA
+        (2, 200, 333, 8, 2, 256, bf16, False),
+        (2, 200, 333, 8, 2, 256, f32, False),
+        (2, 200, 200, 4, 2, 64, bf16, True),       # ragged S
+        (2, 200, 200, 4, 2, 64, f32, True),
+        (2, 200, 333, 4, 4, 64, f32, False),       # ragged T != S
+        (2, 200, 333, 4, 1, 64, bf16, False),
+        (2, 256, 256, 8, 1, 32, bf16, True),
+        (2, 256, 256, 8, 2, 32, f32, True),
+        (2, 256, 256, 8, 2, 128, bf16, True),
+        (2, 256, 256, 8, 1, 128, f32, False),
     ]
-    main = None
+    timed = {}
     for B, S, T, H, K, hd, dtype, causal in cases:
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dtype)
@@ -188,29 +227,36 @@ def check_k1(gen) -> dict:
               f"causal={causal}: max_abs_err={err:.3e} (tol {tol:g}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         _check(ok, f"K1 disagrees with its plain version: max_abs_err={err}")
-        if main is None:
-            main = (q, k, v, causal, err, (B, S, T, H, K, hd, dtype, causal))
+        for arch, shape in K1_SHAPES.items():
+            if (B, S, T, H, K, hd) == shape and dtype == bf16 and causal and arch not in timed:
+                timed[arch] = (q, k, v, err)
+    _check(sorted(timed) == sorted(K1_SHAPES), f"K1 timed shapes {sorted(timed)}")
 
-    q, k, v, causal, err, shape = main
-    ms = time_ms(lambda: ops.attention(q, k, v, causal=causal))
-    paced_ms = time_ms(lambda: ops.attention(q, k, v, causal=causal), queued=False)
-    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal), iters=20)
-    # the yardstick on full-H k/v, as the runs before the GQA-folded K1 timed it
-    H = q.shape[2]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, ref.repeat_kv(k, H), ref.repeat_kv(v, H)))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
-    bound_ms, bound_by = attention_bound(*shape)
-    print(f"  K1 at the serving shape, paced by the host (back-to-back calls without "
-          f"a queued start): {paced_ms:.4f} ms a call", flush=True)
-    print(f"  K1 at the serving shape: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms "
-          f"({bound_by}), {bound_ms / ms:.1%} of the bound", flush=True)
+    at = {}
+    for arch, (q, k, v, err) in timed.items():
+        ms = time_ms(lambda: ops.attention(q, k, v, causal=True))
+        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True), iters=20)
+        library_ms = _sdpa_ms(q, k, v, True)
+        bound_ms, bound_by = attention_bound(*K1_SHAPES[arch], torch.bfloat16, True)
+        at[arch] = {"shape": "B,S,T,H,K,hd=" + ",".join(map(str, K1_SHAPES[arch])),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        print(f"  K1 at {arch}'s prefill shape ({at[arch]['shape']}, bf16, causal): "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+              f"({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of the bound", flush=True)
+    q, k, v, _ = timed[ARCH]
+    paced_ms = time_ms(lambda: ops.attention(q, k, v, causal=True), queued=False)
+    print(f"  K1 at {ARCH}'s prefill shape, paced by the host (back-to-back calls "
+          f"without a queued start): {paced_ms:.4f} ms a call", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
-            "design": "mma.sync bf16 + cp.async ring, GQA-folded k/v; f32 scalar",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "design": "mma.sync bf16 + cp.async ring, GQA-folded k/v (hd 256: 32-key "
+                      "tiles, q fragments from shared memory); f32 scalar",
+            **{key: at[ARCH][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+            "at": at}
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +314,8 @@ def _k2_err(name, got, expect, tol) -> float:
 
 
 def check_k2(gen) -> dict:
-    """Hold K2 against both plain versions on the card; time the serving shape."""
+    """Hold K2 against both plain versions on the card; time each model's
+    prefill shape (``K2_SHAPES``)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as ssd_mod
@@ -277,8 +324,10 @@ def check_k2(gen) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
         # (b, s, h, p, n, chunk, x dtype, B/C dtype, init_state)
-        (8, 512, 80, 64, 128, 128, bf16, bf16, False),   # the serving prefill
+        (8, 512, 80, 64, 128, 128, bf16, bf16, False),   # mamba2-2.7b's prefill
         (8, 512, 80, 64, 128, 128, f32, f32, False),
+        (8, 512, 64, 64, 64, 128, bf16, bf16, False),    # zamba2-1.2b's prefill
+        (8, 512, 64, 64, 64, 128, f32, f32, False),
         (2, 96, 8, 64, 128, 96, bf16, bf16, False),      # S=96 -> chunk 96
         (2, 96, 8, 64, 128, 96, f32, f32, False),
         (2, 24, 4, 16, 16, 12, f32, f32, False),         # S=24, reduced chunk 16 -> 12
@@ -301,7 +350,7 @@ def check_k2(gen) -> dict:
         (2, 64, 4, 32, 20, 32, bf16, bf16, True),
         (1, 32, 2, 8, 12, 16, bf16, bf16, False),
     ]
-    main, err_main = None, None
+    timed = {}
     for case in cases:
         b, s, h, p, n, chunk, xdt, bcdt, with_init = case
         x, dt, A, B, C, st = ssd_inputs(gen, b, s, h, p, n, xdt, bcdt, with_init)
@@ -323,28 +372,38 @@ def check_k2(gen) -> dict:
             y_c, fin_c = ssd_chunked(x, dt, A, B, C, chunk, init_state=st)
             _k2_err("y vs ssd_chunked", y, y_c, K2_CHUNKED_TOL)
             _k2_err("state vs ssd_chunked", fin, fin_c, K2_CHUNKED_TOL)
-        if main is None:
-            main, err_main = (x, dt, A, B, C, case), err
+        for arch, shape in K2_SHAPES.items():
+            if (case[:6] == shape and xdt == bcdt == bf16 and not with_init
+                    and arch not in timed):
+                timed[arch] = (x, dt, A, B, C, err)
+    _check(sorted(timed) == sorted(K2_SHAPES), f"K2 timed shapes {sorted(timed)}")
 
-    x, dt, A, B, C, (b, s, h, p, n, chunk, xdt, bcdt, _) = main
-    ms = time_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk))
+    at = {}
+    for arch, (x, dt, A, B, C, err) in timed.items():
+        b, s, h, p, n, chunk = K2_SHAPES[arch]
+        ms = time_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk))
+        plain_ms = time_ms(lambda: ssd_chunked(x, dt, A, B, C, chunk), iters=10, warmup=2)
+        bound_ms, bound_by = ssd_bound(b, s, h, p, n, chunk, bf16, bf16)
+        at[arch] = {"shape": "b,s,h,p,n,chunk=" + ",".join(map(str, K2_SHAPES[arch])),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        print(f"  K2 at {arch}'s prefill shape ({at[arch]['shape']}, bf16): {ms:.4f} ms, "
+              f"plain ssd_chunked {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of the bound", flush=True)
+    x, dt, A, B, C, _ = timed[SSM_ARCH]
+    chunk = K2_SHAPES[SSM_ARCH][-1]
     paced_ms = time_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk), queued=False)
-    print(f"  K2 at the serving shape, paced by the host: {paced_ms:.4f} ms a call",
-          flush=True)
-    plain_ms = time_ms(lambda: ssd_chunked(x, dt, A, B, C, chunk), iters=10, warmup=2)
     ref_ms = time_ms(lambda: ref.ssd_ref(x, dt, A, B, C), iters=3, warmup=1)
-    bound_ms, bound_by = ssd_bound(b, s, h, p, n, chunk, xdt, bcdt)
-    print(f"  K2 at the serving shape: {ms:.4f} ms, plain ssd_chunked {plain_ms:.4f} ms, "
-          f"ssd_ref {ref_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{bound_ms / ms:.1%} of the bound", flush=True)
+    print(f"  K2 at {SSM_ARCH}'s prefill shape: paced by the host {paced_ms:.4f} ms a "
+          f"call; ssd_ref {ref_ms:.4f} ms", flush=True)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:35",
             "design": "mma.sync bf16 (f32 operands split hi + lo) + cp.async, "
                       "(batch, head, P/2) CTAs; f32 scalar",
-            "max_abs_err": err_main, "ms": ms, "plain_ms": plain_ms,
-            "plain_ref_ms": ref_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            **{key: at[SSM_ARCH][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms")},
+            "plain_ref_ms": ref_ms, "at": at}
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +452,21 @@ def make_prompts(cfg, batch, length, device):
 def _launches() -> dict:
     from repro_torch.kernels import ops
     return {"attention": ops.attention.launches, "ssd": ops.ssd.launches}
+
+
+def expected_launches(cfg) -> dict:
+    """K1 and K2 launches of one prefill of ``cfg`` (and of a whole request:
+    decode runs neither kernel). K1 runs once per attention layer (dense)
+    or per application of the hybrid's shared block, one after every full
+    segment of ``attn_every`` Mamba2 layers (zamba2-1.2b: 38 // 6 = 6);
+    K2 once per Mamba2 layer."""
+    if cfg.family == "dense":
+        return {"attention": cfg.n_layers, "ssd": 0}
+    if cfg.family == "ssm":
+        return {"attention": 0, "ssd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"attention": cfg.n_layers // cfg.attn_every, "ssd": cfg.n_layers}
+    raise ValueError(f"no served path for family {cfg.family!r}")
 
 
 def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -> dict:
@@ -727,32 +801,38 @@ def main() -> int:
     k2 = check_k2(torch.Generator(device="cuda").manual_seed(SEED))
     t_phase = _phase_done(2, t_phase)
 
-    # 3 and 4, for each model: serve at full width in bf16, then f32 consistency
+    # 3 and 4, for each model: serve at full width and depth in bf16, then f32
+    # consistency
     served = {}
-    for arch, kernel in ((ARCH, "attention"), (SSM_ARCH, "ssd")):
+    for arch in SERVE_ARCHS:
         cfg = get_config(arch)
         res = serve(cfg, device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
                     decode_steps=DECODE_STEPS)
-        print(f"[3] {arch}: served {SERVE_BATCH} requests of {PROMPT_LEN} tokens + "
-              f"{DECODE_STEPS} decode steps: prefill {res['prefill_ms']:.3f} ms, "
-              f"decode {res['decode_ms_per_step']:.3f} ms/step, "
+        print(f"[3] {arch} ({cfg.n_layers} layers): served {SERVE_BATCH} requests of "
+              f"{PROMPT_LEN} tokens + {DECODE_STEPS} decode steps: prefill "
+              f"{res['prefill_ms']:.3f} ms, decode {res['decode_ms_per_step']:.3f} ms/step, "
               f"{res['tokens_per_s']:.1f} generated tokens/s, "
               f"max_memory_allocated {res['max_memory_allocated']} B; launches: "
               f"prefill {res['prefill_launches']}, request {res['request_launches']}",
               flush=True)
-        expect = {k: (cfg.n_layers if k == kernel else 0) for k in res["prefill_launches"]}
+        expect = expected_launches(cfg)
         _check(res["prefill_launches"] == expect,
                f"{arch} prefill launched {res['prefill_launches']}, not {expect}")
         _check(res["request_launches"] == expect,
                f"{arch} request launched {res['request_launches']}, not {expect}")
-        served[kernel] = res
+        served[arch] = res["prefill_launches"]
         del res
         torch.cuda.empty_cache()             # the bf16 model is gone before [4]
         t_phase = _phase_done(3, t_phase, arch)
 
-        errs = consistency(cfg, device="cuda", prefill_batch=SERVE_BATCH,
-                           prefill_len=PROMPT_LEN, batch=2, seq_len=96, split=32)
-        print(f"[4] {arch}: f32 consistency: {json.dumps(errs)}", flush=True)
+        layers = CONSISTENCY_LAYERS.get(arch, cfg.n_layers)
+        cut = (f" cut to {layers} layers (full widths; its f32 params at full depth "
+               f"alone are {cfg.param_count() * 4 / 1e9:.1f} GB)"
+               if layers != cfg.n_layers else "")
+        errs = consistency(dataclasses.replace(cfg, n_layers=layers), device="cuda",
+                           prefill_batch=SERVE_BATCH, prefill_len=PROMPT_LEN, batch=2,
+                           seq_len=96, split=32)
+        print(f"[4] {arch}{cut}: f32 consistency: {json.dumps(errs)}", flush=True)
         _check(errs["prefill_kernels_vs_plain"] <= PREFILL_PLAIN_TOL,
                f"{arch} prefill kernels vs plain {errs['prefill_kernels_vs_plain']} "
                f"> {PREFILL_PLAIN_TOL}")
@@ -808,10 +888,13 @@ def main() -> int:
     _phase_done(5, t_phase)
 
     # 6. results; the ok line is last
-    k1["launches"] = served["attention"]["prefill_launches"]["attention"]
+    # launches: the sum over the served models' timed prefills (each counted
+    # from 0), and per model
+    for entry, kernel in ((k1, "attention"), (k2, "ssd")):
+        entry["launches_by_arch"] = {arch: n[kernel] for arch, n in served.items()}
+        entry["launches"] = sum(entry["launches_by_arch"].values())
     k1["train_launches_per_step"] = res["launches_per_step"][0]["attention"]
     k1.update({f"train_{key}": val for key, val in k1_grad.items()})
-    k2["launches"] = served["ssd"]["prefill_launches"]["ssd"]
     print(json.dumps({"kernels": [k1, k2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving path goes, on one CUDA card.
 
-    python3 scripts/profile_serve.py [--arch qwen2-0.5b|mamba2-2.7b]
+    python3 scripts/profile_serve.py [--arch qwen2-0.5b|mamba2-2.7b|zamba2-1.2b|gemma-7b]
 
 Builds the full-width model (qwen2-0.5b unless ``--arch`` names another
-of the port's configs) in bf16 with seeded random weights and the
-prompts of ``chip_smoke.py`` phase 3 (8 x 512 tokens), warms up at the
-measured shapes, then traces one prefill and 8 greedy decode steps with
-``torch.profiler``. For each window it prints the host time, the device
+of the port's configs) at full depth in bf16 with seeded random weights
+and the prompts of ``chip_smoke.py`` phase 3 (8 x 512 tokens), warms up
+at the measured shapes, then traces one prefill and 8 greedy decode
+steps with ``torch.profiler``. For each window it prints the host time, the device
 busy time (the union of kernel intervals), the idle share, the kernel
 count, and the kernels with the most device time. The Chrome traces go
 to ``chiprun_out/profile_serve_<arch>_{prefill,decode}.json``.
@@ -66,7 +66,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--arch", default="qwen2-0.5b")
+    parser.add_argument("--arch", default="qwen2-0.5b",
+                        help="one of repro_torch.configs.list_configs()")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)

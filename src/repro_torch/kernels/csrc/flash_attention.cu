@@ -9,7 +9,9 @@
 // -1e30 (query i sees keys j <= i), online softmax with f32 running m / l
 // / acc, l clamped to >= 1e-30, output rounded to the input dtype. Beyond
 // the Pallas kernel's domain, any S and T work: the ragged edge is masked
-// here instead of asserting block divisibility. hd is 32, 64 or 128.
+// here instead of asserting block divisibility. hd is 32, 64, 128 or 256
+// (the Pallas kernel's note gives 64..256 for the assigned archs; gemma-7b
+// has 256).
 //
 // bf16 design (flash_mma_kernel, the serving path):
 //   * one CTA of 4 warps per (b * h, 64-row q tile), each warp owning 16
@@ -34,7 +36,13 @@
 //     and only tiles that cross the diagonal or the ragged edge are masked;
 //   * the softmax works in base 2 (scale * log2 e folded into one multiply,
 //     2^x on the special-function unit); the -1e30 mask value is kept;
-//   * the output goes through shared memory to 16-byte stores.
+//   * the output goes through shared memory to 16-byte stores;
+//   * at hd 256 the O accumulator alone takes 128 registers a thread, so
+//     the kernel takes 32-key tiles (16 score registers, not 32) and reads
+//     q's A fragments from shared memory at each k-step instead of holding
+//     all 64 of their registers (sQ holds the tile for the whole loop):
+//     (64 + 4 * 32) rows * 264 * 2 B = 101,376 B of shared memory, two
+//     CTAs to an SM.
 // One CTA per (b * h) q tile rather than per KV head: the G query heads of
 // one KV head read the same K/V tiles, which stay in the 50 MB L2. Measured
 // on the H100 and slower (PERF.md): 128 packed (position, head) rows of one
@@ -52,8 +60,11 @@
 // hd=64, bf16, causal): 4*B*H*hd*S(S+1)/2 = 3.77 GFLOP, 3.8 us at the bf16
 // tensor rate of 989 TFLOP/s; q and o are 2 * 7.34 MB, k and v 2 * 1.05 MB
 // (K = 2 heads), 16.8 MB together, 5.0 us at 3.35 TB/s. So it is bound by
-// bytes near 5 us per launch. mma.sync reaches well under the 989 TFLOP/s
-// of wgmma; wgmma, TMA and warp specialisation are later work.
+// bytes near 5 us per launch. At gemma-7b's prefill shape (B=8, S=T=512,
+// H=K=16, hd=256, bf16, causal): 17.2 GFLOP, 17.4 us; q, k, v and o
+// 4 * 33.6 MB, 40.1 us: bound by bytes too. mma.sync reaches well under
+// the 989 TFLOP/s of wgmma; wgmma, TMA and warp specialisation are later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +81,7 @@ constexpr int KC = 16;             // keys per online-softmax step (f32 kernel)
 constexpr int TILE_FLOATS = 4096;  // f32 values per staged K (and V) tile (f32 kernel)
 constexpr int MMA_THREADS = 128;   // bf16 kernel: 4 warps of 16 query rows,
 constexpr int MMA_BQ = 64;         // so 64 query rows per CTA,
-constexpr int BK = 64;             // and 64 keys per K/V tile
+constexpr int BK_WIDE = 32;        // keys per K/V tile at hd 256 (64 below it)
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -84,9 +95,21 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
+// Keys per K/V tile, and whether q's fragments stay in registers for the
+// whole loop (else they are read from sQ at each k-step): see the note.
+template <int HD>
+__host__ __device__ constexpr int kv_tile() {
+  return HD <= 128 ? 64 : BK_WIDE;
+}
+
+template <int HD>
+__host__ __device__ constexpr bool q_in_registers() {
+  return HD <= 128;
+}
+
 template <int HD>
 __host__ __device__ constexpr int mma_smem_bytes() {
-  return (MMA_BQ + 4 * BK) * (HD + 8) * static_cast<int>(sizeof(__nv_bfloat16));
+  return (MMA_BQ + 4 * kv_tile<HD>()) * (HD + 8) * static_cast<int>(sizeof(__nv_bfloat16));
 }
 
 template <int HD>
@@ -94,6 +117,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                  int S, int Tk, int H, int K, float scale, int causal) {
+  constexpr int BK = kv_tile<HD>();
+  constexpr bool QREG = q_in_registers<HD>();
   constexpr int LD = HD + 8;     // shared row stride in elements: 16 B of skew per row
   constexpr int CPR = HD / 8;    // 16-byte chunks per row
   constexpr int NTK = BK / 8;    // key n-tiles of S
@@ -143,7 +168,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   load_kv(0, 0);
   mma::cp_async_commit();
 
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[QREG ? HD / 16 : 1][4];
   float acc[NTD][4];
 #pragma unroll
   for (int d = 0; d < NTD; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
@@ -160,10 +185,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       load_kv((it + 1) & 1, k0 + BK);
       mma::cp_async_commit();
     }
-    if (it == 0) {
+    if constexpr (QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        mma::ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          mma::ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      }
     }
     if (causal && k0 > row0 + 15) continue;   // warp-uniform: all its rows precede the tile
     const __nv_bfloat16* tk = sK + (it & 1) * BK * LD;
@@ -175,13 +202,19 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int n = 0; n < NTK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (QREG) {
+        a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
+      } else {
+        mma::ldmatrix_x4(a, sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int np = 0; np < NTK / 2; ++np) {
         uint32_t r[4];
         mma::ldmatrix_x4(r, tk + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                                 ((lane >> 3) & 1) * 8);
-        mma::mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        mma::mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        mma::mma_bf16(s[2 * np], a, r[0], r[1]);
+        mma::mma_bf16(s[2 * np + 1], a, r[2], r[3]);
       }
     }
 
@@ -428,7 +461,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 // q, o: contiguous (B, S, H, hd); k, v: contiguous (B, Tk, K, hd) with
 // H % K == 0; all 16-byte aligned device arrays, all float32 (is_bf16 = 0)
-// or all bfloat16 (is_bf16 = 1); hd in {32, 64, 128}. Launches on
+// or all bfloat16 (is_bf16 = 1); hd in {32, 64, 128, 256}. Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError()
 // (0 = launched).
 extern "C" int k1_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -441,6 +474,7 @@ extern "C" int k1_flash_attention_fwd(const void* q, const void* k, const void* 
     case 32: return launch<32>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, st);
     case 64: return launch<64>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, st);
     case 128: return launch<128>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, st);
+    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, st);
     default: return cudaErrorInvalidValue;
   }
 }

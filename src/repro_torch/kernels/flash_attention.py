@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -24,6 +24,23 @@ MAX_CHUNK = 128                  # also the largest N
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def kernel_chunk(S: int, chunk: int) -> int:
+    """The chunk K2 runs a scan of S positions at when ``chunk`` is asked
+    for: the largest divisor of S that is not above min(chunk, MAX_CHUNK).
+
+    The chunked scan computes the same function at any chunk (the chunk
+    changes only the rounding), so a chunk above K2's limit, which the
+    JAX package's ``ssd_chunked`` runs, is served at this one. K2 itself
+    still refuses a chunk above ``MAX_CHUNK``.
+    """
+    if S < 1 or chunk < 1:
+        raise ValueError(f"kernel_chunk takes S >= 1 and chunk >= 1; got {S}, {chunk}")
+    c = min(chunk, MAX_CHUNK, S)
+    while S % c:
+        c -= 1
+    return c
+
+
 def kernel_path(x_dtype: torch.dtype, bc_dtype: torch.dtype) -> str:
     """The kernel a call with these dtypes runs: "mma" (tensor cores, bf16 x
     and bf16 B/C) or "scalar" (f32 FMAs, any f32 operand)."""

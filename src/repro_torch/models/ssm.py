@@ -11,7 +11,9 @@ n_groups = 1, B and C are shared across SSD heads.
 
 ``apply_mamba`` sends every multi-token scan (prefill, and a chunk that
 continues a state) through ``kernels.ops.ssd``: kernel K2 on a CUDA
-tensor, ``ssd_chunked`` below on a CPU tensor. The single-token decode
+tensor, at ``pick_chunk``'s chunk cut to K2's limit
+(``ssd_scan.kernel_chunk``), and ``ssd_chunked`` below at
+``pick_chunk``'s chunk on a CPU tensor. The single-token decode
 step, the conv and the projections stay plain PyTorch, as the JAX
 package computes them outside any Pallas kernel too.
 """
@@ -23,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ssd_scan
 from repro_torch.models.layers import RunConfig, dense_init, rms_norm
 
 
@@ -200,8 +202,10 @@ def apply_mamba(params, x, cfg, rc: RunConfig, state: Optional[SSMState] = None,
         new_state = SSMState(ssd, tx, tb, tc)
     else:
         init = state.ssd if state is not None else None
-        y, ssd = ops.ssd(xh, dt, A, Bv, Cv, chunk=pick_chunk(S, cfg, rc),
-                         init_state=init)
+        chunk = pick_chunk(S, cfg, rc)
+        if xh.device.type == "cuda":       # K2 takes chunks up to ssd_scan.MAX_CHUNK
+            chunk = ssd_scan.kernel_chunk(S, chunk)
+        y, ssd = ops.ssd(xh, dt, A, Bv, Cv, chunk=chunk, init_state=init)
         if return_state:
             new_state = SSMState(ssd, tx, tb, tc)
 

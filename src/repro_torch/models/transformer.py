@@ -1,9 +1,13 @@
-"""Model assembly for the dense and ssm families: stacked blocks, forward, decode.
+"""Model assembly for the dense, ssm and hybrid families: stacked blocks,
+forward, decode.
 
 Params keep the JAX package's tree: a dict with ``embed``,
 ``final_norm`` and ``blocks``, whose leaves are stacked with a leading
 L axis. The JAX package's ``lax.scan`` over layers becomes a Python loop
-over that axis. The other families (moe, hybrid, audio, vlm) raise
+over that axis. The hybrid family (zamba2) runs its Mamba2 stack in
+segments of ``attn_every`` layers and applies ONE unstacked attention +
+MLP block, ``shared_block``, after every full segment; a shorter last
+segment gets none. The other families (moe, audio, vlm) raise
 ``NotImplementedError`` naming the slice that ports them.
 """
 from __future__ import annotations
@@ -20,10 +24,9 @@ from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init,
 # SSM / router leaves that stay f32 through compute-dtype casting
 _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "router", "gate")
 
-_PORTED_FAMILIES = ("dense", "ssm")
+_PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 _SLICE_OF_FAMILY = {
     "moe": "the MoE slice",
-    "hybrid": "the hybrid slice",
     "audio": "the audio slice",
     "vlm": "the VLM slice",
 }
@@ -57,6 +60,27 @@ def _layer(tree, i: int):
     """The i-th layer's view of a stacked params tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _segments(n_layers: int, every: int):
+    """[(a, b, apply_shared_after), ...] covering n_layers in runs of
+    ``every`` (the JAX package's): only a full run is followed by the
+    shared block, so a shorter last run (38 = 6 * 6 + 2) gets none."""
+    segs = []
+    a = 0
+    while a < n_layers:
+        b = min(a + every, n_layers)
+        segs.append((a, b, b - a == every))
+        a = b
+    return segs
+
+
+def _mamba_segments(cfg):
+    """The Mamba2 stack's segments: the hybrid's, or one run without the
+    shared block for the ssm family."""
+    if cfg.family == "hybrid":
+        return _segments(cfg.n_layers, cfg.attn_every)
+    return [(0, cfg.n_layers, False)]
 
 
 # ---------------------------------------------------------------------------
@@ -99,9 +123,11 @@ def init_params(cfg, gen: Optional[torch.Generator], rc: RunConfig) -> Dict[str,
     }
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, (cfg.vocab_padded, cfg.d_model), dtype, device)
-    init_block = _init_mamba_block if cfg.family == "ssm" else _init_attn_block
+    init_block = _init_attn_block if cfg.family == "dense" else _init_mamba_block
     params["blocks"] = _stack([init_block(gen, cfg, dtype, device)
                                for _ in range(cfg.n_layers)])
+    if cfg.family == "hybrid":
+        params["shared_block"] = _init_attn_block(gen, cfg, dtype, device)
     return params
 
 
@@ -145,9 +171,11 @@ def forward(params, cfg, rc: RunConfig, *, tokens: torch.Tensor,
 
     Returns (logits, aux_loss, cache). The cache is None unless
     ``return_cache`` (prefill); then it is {"k", "v": (L, B, S, K, hd),
-    "pos": S} for the dense family and {"ssm": SSMState stacked over L,
-    "pos": S} for the ssm family, with ``pos`` a host int. ``last_only``
-    emits logits for the final position only (what serving prefill needs).
+    "pos": S} for the dense family, {"ssm": SSMState stacked over L,
+    "pos": S} for the ssm family, and for the hybrid that state plus the
+    shared block's "k", "v": (n_apps, B, S, K, hd), one per application;
+    ``pos`` is a host int. ``last_only`` emits logits for the final
+    position only (what serving prefill needs).
     """
     _require_ported(cfg)
     params = _cast_params(params, rc)
@@ -157,21 +185,30 @@ def forward(params, cfg, rc: RunConfig, *, tokens: torch.Tensor,
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=rc.compute_dtype)
 
     cache = None
-    if cfg.family == "ssm":
+    positions = torch.arange(S, device=h.device)[None, :]
+    ks, vs = [], []
+    if cfg.family in ("ssm", "hybrid"):
         states = (ssm_lib.init_ssm_state(cfg, B, rc.compute_dtype, h.device,
                                          layers=cfg.n_layers)
                   if return_cache else None)
-        for i in range(cfg.n_layers):
-            h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
-                                       return_state=return_cache)
-            if return_cache:
-                for dst, src in zip(states, st):
-                    dst[i].copy_(src)
+        for a, b, shared in _mamba_segments(cfg):
+            for i in range(a, b):
+                h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
+                                           return_state=return_cache)
+                if return_cache:
+                    for dst, src in zip(states, st):
+                        dst[i].copy_(src)
+            if shared:
+                h, kv = _apply_attn_block(params["shared_block"], h, cfg, rc,
+                                          positions, return_kv=return_cache)
+                if return_cache:
+                    ks.append(kv[0])
+                    vs.append(kv[1])
         if return_cache:
             cache = {"ssm": states, "pos": S}
+            if cfg.family == "hybrid":
+                cache.update(k=torch.stack(ks), v=torch.stack(vs))
     else:
-        positions = torch.arange(S, device=h.device)[None, :]
-        ks, vs = [], []
         for i in range(cfg.n_layers):
             h, kv = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc,
                                       positions, return_kv=return_cache)
@@ -194,20 +231,26 @@ def forward(params, cfg, rc: RunConfig, *, tokens: torch.Tensor,
 def init_cache(cfg, rc: RunConfig, batch: int, max_len: int):
     """Zeroed decode cache, the structure forward(return_cache=True) gives.
 
-    The ssm family's cache does not grow with the sequence: ``max_len``
-    sizes only the dense family's k/v. Each layer's state is its own
-    zeroed allocation (no broadcast views), since decode writes it in place.
+    The SSM state does not grow with the sequence: ``max_len`` sizes only
+    the k/v, of every layer (dense) or of every shared-block application
+    (hybrid). Each layer's state is its own zeroed allocation (no
+    broadcast views), since decode writes it in place.
     """
     _require_ported(cfg)
     device = torch.device(rc.device)
-    if cfg.family == "ssm":
-        return {"ssm": ssm_lib.init_ssm_state(cfg, batch, rc.compute_dtype, device,
-                                              layers=cfg.n_layers),
-                "pos": 0}
     K, hd, L = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
-    shape = (L, batch, max_len, K, hd)
     kw = dict(dtype=rc.compute_dtype, device=device)
-    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw), "pos": 0}
+    cache = {}
+    if cfg.family in ("ssm", "hybrid"):
+        cache["ssm"] = ssm_lib.init_ssm_state(cfg, batch, rc.compute_dtype, device,
+                                              layers=L)
+    if cfg.family != "ssm":
+        n_kv = (L if cfg.family == "dense"
+                else sum(shared for *_, shared in _mamba_segments(cfg)))
+        shape = (n_kv, batch, max_len, K, hd)
+        cache.update(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw))
+    cache["pos"] = 0
+    return cache
 
 
 def decode_step(params, cfg, rc: RunConfig, cache, tokens: torch.Tensor):
@@ -215,9 +258,10 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: torch.Tensor):
 
     Returns (logits (B, 1, Vp), new_cache). The cache is written in place
     (the JAX package donates it): this step's k/v into ``cache["k"]`` /
-    ``cache["v"]``, or each layer's new SSM state into ``cache["ssm"]``.
-    new_cache holds the same tensors and pos + 1. ``pos`` is a host int,
-    so a step forces no device sync.
+    ``cache["v"]`` (of each layer, or of each shared-block application),
+    and each Mamba2 layer's new state into ``cache["ssm"]``. new_cache
+    holds the same tensors and pos + 1. ``pos`` is a host int, so a step
+    forces no device sync.
     """
     _require_ported(cfg)
     params = _cast_params(params, rc)
@@ -226,15 +270,22 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: torch.Tensor):
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=rc.compute_dtype)
 
-    if cfg.family == "ssm":
+    positions = torch.full(tokens.shape[:1] + (1,), index, device=h.device)
+    if cfg.family in ("ssm", "hybrid"):
         states = cache["ssm"]
-        for i in range(cfg.n_layers):
-            h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
-                                       state=ssm_lib.SSMState(*(t[i] for t in states)))
-            for dst, src in zip(states, st):
-                dst[i].copy_(src)
+        app = 0
+        for a, b, shared in _mamba_segments(cfg):
+            for i in range(a, b):
+                h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
+                                           state=ssm_lib.SSMState(*(t[i] for t in states)))
+                for dst, src in zip(states, st):
+                    dst[i].copy_(src)
+            if shared:
+                h, _ = _apply_attn_block(params["shared_block"], h, cfg, rc, positions,
+                                         cache=(cache["k"][app], cache["v"][app]),
+                                         cache_index=index)
+                app += 1
     else:
-        positions = torch.full(tokens.shape[:1] + (1,), index, device=h.device)
         for i in range(cfg.n_layers):
             h, _ = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc, positions,
                                      cache=(cache["k"][i], cache["v"][i]),

@@ -36,8 +36,9 @@ def build_decode_step(cfg, shape_cfg, mesh=None, *,
 
     Returns (step, params_meta, cache_meta, batch_meta, None, model).
     ``step(params, cache, batch) -> (logits (B, 1, Vp), cache)`` writes
-    the cache in place, as the JAX step donates it. An SSM cache is a
-    fixed-size state, whatever ``seq_len`` says.
+    the cache in place, as the JAX step donates it. ``seq_len`` sizes the
+    k/v of a dense cache and of a hybrid's shared-block applications; the
+    SSM state (ssm and hybrid) is the same size whatever ``seq_len`` says.
     """
     _require_no_mesh(mesh)
     model = build(cfg, rc or RunConfig())

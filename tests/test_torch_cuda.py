@@ -19,7 +19,15 @@ backward); its dq, dk, dv are held against autograd through the plain
 version (f32 1e-4, bf16 5e-2, as in ``chip_smoke.py``) and against
 ``attention_bwd`` on K1's own output (1e-6: the same function of the
 same tensors). A CUDA SSD scan under a gradient raises.
+
+Models: the reduced qwen2-0.5b, mamba2-2.7b, zamba2-1.2b (hybrid) and
+gemma-7b at head_dim 256 decode token by token to their forward's f32
+logits (2e-3) with the launch counts checked; a Mamba2 layer under
+``RunConfig(ssd_chunk=256)`` (above K2's 128) runs K2 at the largest
+chunk it takes and agrees with the CPU's scan at 256.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -29,7 +37,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import RunConfig, build  # noqa: E402
-from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from repro_torch.models.ssm import apply_mamba, init_mamba, ssd_chunked  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.runtime.train import (TrainRunConfig, build_train_step,  # noqa: E402
                                        init_sharded_state, value_and_grad)
@@ -67,7 +75,7 @@ def test_k1_matches_plain(card, B, S, T, H, hd, dtype, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T,H,K", [(2, 200, 200, 14, 2), (1, 77, 130, 14, 1),
                                        (2, 128, 128, 4, 1), (1, 1, 1, 14, 2)])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_k1_gqa_matches_plain(card, B, S, T, H, K, hd, dtype, causal):
@@ -103,25 +111,80 @@ def test_k1_refuses_what_it_does_not_take(card):
             ops.attention(bad, bad, bad)
 
 
-@pytest.mark.cuda
-def test_reduced_model_decode_matches_forward_on_card(card):
-    cfg = get_config("qwen2-0.5b").reduced()
+def _decode_matches_forward(card, cfg, expect_launches):
+    """A reduced f32 model on the card: forward launches ``expect_launches``
+    ({"attention": n, "ssd": m}), token-by-token decode launches neither
+    kernel and gives the forward's logits."""
     model = build(cfg, RunConfig(param_dtype=torch.float32,
                                  compute_dtype=torch.float32, device="cuda"))
     params = model.init(torch.Generator(device=card).manual_seed(0))
     B, S = 2, 12
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(card)
-    before = ops.attention.launches
+    before = {"attention": ops.attention.launches, "ssd": ops.ssd.launches}
+
+    def launched():
+        return {"attention": ops.attention.launches - before["attention"],
+                "ssd": ops.ssd.launches - before["ssd"]}
     full, _, _ = model.apply(params, {"tokens": tokens})
-    assert ops.attention.launches == before + cfg.n_layers
+    assert launched() == expect_launches
     cache = model.init_cache(B, S)
     outs = []
     for t in range(S):
         logits, cache = model.decode(params, cache, {"tokens": tokens[:, t:t + 1]})
         outs.append(logits)
+    assert launched() == expect_launches                  # decode launches none
     err = (torch.cat(outs, dim=1) - full).abs().max()
     assert float(err) < 2e-3, float(err)
+
+
+@pytest.mark.cuda
+def test_reduced_model_decode_matches_forward_on_card(card):
+    cfg = get_config("qwen2-0.5b").reduced()
+    _decode_matches_forward(card, cfg, {"attention": cfg.n_layers, "ssd": 0})
+
+
+@pytest.mark.cuda
+def test_reduced_hybrid_decode_matches_forward_on_card(card):
+    """Reduced zamba2-1.2b (4 Mamba2 layers, the shared block after layers
+    2 and 4): 2 K1 and 4 K2 launches in the forward."""
+    cfg = get_config("zamba2-1.2b").reduced()
+    _decode_matches_forward(card, cfg, {"attention": 2, "ssd": 4})
+
+
+@pytest.mark.cuda
+def test_reduced_gemma_head_dim_256_decode_matches_forward_on_card(card):
+    """Reduced gemma-7b at its own head_dim of 256 (GeGLU, scaled and tied
+    embeddings): K1 at hd 256 once per layer."""
+    cfg = dataclasses.replace(get_config("gemma-7b").reduced(), head_dim=256)
+    _decode_matches_forward(card, cfg, {"attention": cfg.n_layers, "ssd": 0})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_mamba_chunk_above_k2s_limit_matches_cpu(card, dtype):
+    """RunConfig(ssd_chunk=256): the CPU scans at 256 (the JAX package's
+    chunk), the card at ssd_scan.kernel_chunk(512, 256) = 128 through K2,
+    one launch; outputs and state agree within K2's tolerance against
+    ssd_chunked (f32 2e-4), or the bf16 apply_mamba tolerance (2e-2)."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    dt = TORCH_DTYPE[dtype]
+    params = init_mamba(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    params = {k: v if k in ("A_log", "dt_bias", "D_skip", "gate_norm") else v.to(dt)
+              for k, v in params.items()}
+    x = torch.randn((2, 512, cfg.d_model), generator=torch.Generator().manual_seed(1)).to(dt)
+    rc = RunConfig(compute_dtype=dt, device="cpu", ssd_chunk=256)
+    y_cpu, st_cpu = apply_mamba(params, x, cfg, rc, return_state=True)
+    before = ops.ssd.launches
+    y, st = apply_mamba({k: v.to(card) for k, v in params.items()}, x.to(card), cfg,
+                        rc.replace(device="cuda"), return_state=True)
+    torch.cuda.synchronize()
+    assert ops.ssd.launches == before + 1
+    assert ssd_mod.kernel_chunk(512, 256) == 128
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(y.cpu().float(), y_cpu.float(), atol=tol, rtol=tol)
+    for got, expect in zip(st, st_cpu):
+        torch.testing.assert_close(got.cpu().float(), expect.float(), atol=tol, rtol=tol)
 
 
 def _ssd_inputs(card, b, s, h, p, n, x_dtype, bc_dtype, with_init=False):
@@ -201,23 +264,7 @@ def test_k2_refuses_what_it_does_not_take(card):
 @pytest.mark.cuda
 def test_reduced_mamba2_decode_matches_forward_on_card(card):
     cfg = get_config("mamba2-2.7b").reduced()
-    model = build(cfg, RunConfig(param_dtype=torch.float32,
-                                 compute_dtype=torch.float32, device="cuda"))
-    params = model.init(torch.Generator(device=card).manual_seed(0))
-    B, S = 2, 12
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(card)
-    before = ops.ssd.launches
-    full, _, _ = model.apply(params, {"tokens": tokens})
-    assert ops.ssd.launches == before + cfg.n_layers
-    cache = model.init_cache(B, S)
-    outs = []
-    for t in range(S):
-        logits, cache = model.decode(params, cache, {"tokens": tokens[:, t:t + 1]})
-        outs.append(logits)
-    assert ops.ssd.launches == before + cfg.n_layers      # decode launches none
-    err = (torch.cat(outs, dim=1) - full).abs().max()
-    assert float(err) < 2e-3, float(err)
+    _decode_matches_forward(card, cfg, {"attention": 0, "ssd": cfg.n_layers})
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +272,8 @@ def test_reduced_mamba2_decode_matches_forward_on_card(card):
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T,H,K,hd", [(2, 200, 200, 14, 2, 64), (2, 128, 128, 4, 4, 32),
-                                          (1, 77, 130, 4, 1, 128), (2, 64, 64, 14, 14, 64)])
+                                          (1, 77, 130, 4, 1, 128), (2, 64, 64, 14, 14, 64),
+                                          (1, 77, 130, 8, 2, 256), (2, 64, 64, 4, 4, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_fn_grads_match_plain(card, B, S, T, H, K, hd, dtype, causal):

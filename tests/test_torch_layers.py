@@ -36,7 +36,7 @@ def _close(j, t, tol):
 # ---------------------------------------------------------------------------
 # configs: the port keeps its own copy; it must equal the reference
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_copy_matches_reference(reduced, arch):
     a, b = jcfg.get_config(arch), tcfg.get_config(arch)
@@ -50,7 +50,7 @@ def test_config_copy_matches_reference(reduced, arch):
 def test_shapes_and_registry():
     assert {k: dataclasses.asdict(v) for k, v in jcfg.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in tcfg.SHAPES.items()}
-    assert tcfg.list_configs() == ["mamba2-2.7b", "qwen2-0.5b"]
+    assert tcfg.list_configs() == ["gemma-7b", "mamba2-2.7b", "qwen2-0.5b", "zamba2-1.2b"]
     cfg = tcfg.get_config("qwen2-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_padded) == \
@@ -60,8 +60,17 @@ def test_shapes_and_registry():
             cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv_width, cfg.ssm_chunk,
             cfg.vocab_padded, cfg.tie_embeddings) == \
         ("ssm", 64, 2560, 5120, 80, 64, 128, 4, 128, 50432, False)
+    cfg = tcfg.get_config("zamba2-1.2b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.ssm_n_heads, cfg.ssm_head_dim,
+            cfg.ssm_state, cfg.attn_every, cfg.vocab_padded) == \
+        ("hybrid", 38, 2048, 32, 32, 64, 8192, 64, 64, 64, 6, 32000)
+    cfg = tcfg.get_config("gemma-7b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.d_ff, cfg.vocab_padded, cfg.gelu_mlp, cfg.scale_embeddings,
+            cfg.tie_embeddings) == (28, 3072, 16, 16, 256, 24576, 256000, True, True, True)
     with pytest.raises(KeyError):
-        tcfg.get_config("gemma-7b")
+        tcfg.get_config("deepseek-67b")
 
 
 def _leaves(tree, prefix=""):

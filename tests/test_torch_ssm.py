@@ -185,6 +185,62 @@ def test_pick_chunk_follows_the_reference_loop():
     assert ts.pick_chunk(96, cfg, rc.replace(ssd_chunk=32)) == 32
 
 
+def test_kernel_chunk_is_the_largest_divisor_within_k2s_limit():
+    cases = ((512, 256), (512, 128), (512, 96), (96, 256), (200, 256), (131, 256),
+             (1, 256), (768, 512), (24, 12), (7, 1))
+    assert [tssd.kernel_chunk(S, c) for S, c in cases] == \
+        [128, 128, 64, 96, 100, 1, 1, 128, 12, 1]
+    for S in range(1, 300):
+        for c in (1, 5, 64, 128, 129, 256, 1024):
+            k = tssd.kernel_chunk(S, c)
+            assert S % k == 0 and k <= min(c, tssd.MAX_CHUNK)
+            assert not any(S % j == 0 for j in range(k + 1, min(c, tssd.MAX_CHUNK, S) + 1))
+    for bad in ((0, 128), (16, 0)):
+        with pytest.raises(ValueError):
+            tssd.kernel_chunk(*bad)
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_chunked_at_chunk_256_matches_chunk_128(with_init):
+    """The chunked scan computes one function at any chunk: at S=512 its
+    chunk-256 result (the JAX package's, under RunConfig(ssd_chunk=256))
+    and its chunk-128 one (what K2 runs there) agree in f32 within 2e-4
+    (abs and rel), the JAX tests' tolerance for the chunked path. So does
+    the JAX ``ssd_chunked`` at 256: a 256-long chunk's f32 cumsums and
+    exps round more than the 1e-5 of the short chunks above allows (over
+    seeds 0-4, |y| < 30, the two frameworks' chunk-256 y differed by at
+    most 2.1e-4, 7e-6 of |y|; chunk 256 against 128 by 1.1e-4)."""
+    rng = np.random.default_rng(9)
+    xs, (x, dt, A, B, C) = _ssd_inputs(rng, 2, 512, 4, 16, 32, "float32")
+    init = (rng.standard_normal((2, 4, 16, 32)) * 0.5).astype(np.float32) if with_init \
+        else None
+    tinit = None if init is None else torch.from_numpy(init)
+    y256, s256 = ts.ssd_chunked(x, dt, A, B, C, 256, init_state=tinit)
+    y128, s128 = ts.ssd_chunked(x, dt, A, B, C, 128, init_state=tinit)
+    _close(y128.numpy(), y256, KERNEL_TOL["float32"])
+    _close(s128.numpy(), s256, KERNEL_TOL["float32"])
+    yj, sj = js.ssd_chunked(*xs, 256, init_state=None if init is None else jnp.asarray(init))
+    _close(yj, y256, KERNEL_TOL["float32"])
+    _close(sj, s256, KERNEL_TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_mamba_at_chunk_256_matches_reference(dtype):
+    """RunConfig(ssd_chunk=256) on the CPU keeps pick_chunk's chunk, 256,
+    as the JAX package does (the card runs K2 at 128: test_torch_cuda.py)."""
+    jc, tc, pj, pt = _mamba_params(dtype, seed=10)
+    rng = np.random.default_rng(10)
+    xj, xt = _pair(rng, (1, 512, jc.d_model), dtype)
+    assert ts.pick_chunk(512, tc, RunConfig(device="cpu", ssd_chunk=256)) == 256
+    oj, sj = js.apply_mamba(pj, xj, jc, JaxRunConfig(compute_dtype=dtype, ssd_chunk=256),
+                            return_state=True)
+    ot, st = ts.apply_mamba(pt, xt, tc, RunConfig(compute_dtype=TORCH_DTYPE[dtype],
+                                                  device="cpu", ssd_chunk=256),
+                            return_state=True)
+    _close(oj, ot, MAMBA_TOL[dtype])
+    _close_state(sj, st, MAMBA_TOL[dtype])
+
+
 # ---------------------------------------------------------------------------
 # apply_mamba: prefill (through ops.ssd), decode, continuing a state
 # ---------------------------------------------------------------------------
