@@ -60,10 +60,31 @@ Phases; any failure exits non-zero and prints no result line:
    plain version: loss and grad norm within 1e-4 relative, updated
    params within 1e-4, and every gradient leaf within 1e-4 of its
    plain counterpart's largest value (the q/k/v projections' non-zero).
-6. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
+6. Workflows under the port's KubeAdaptor engine (``repro_torch.core``)
+   with ``payload_mode="real"``, each with the counts set to 0 just
+   before it: the serve twin (``repro_torch.examples.serve_batch``) on
+   full-width qwen2-0.5b in bf16, 8 prompts of 512 tokens and G = 65
+   (the cache grown by 65 slots, 64 decode steps): a plain loop, then a
+   prefill pod and a decode pod, whose tokens must be bit-equal to the
+   loop's, K1 launching 24 times in the prefill pod and never in the
+   decode pod. The cache-length check: greedy decode with the cache
+   grown by 64 and by 65 slots, in f32 at full width cut to 4 layers
+   (logits within 1e-5, tokens equal), and the count of differing
+   tokens in bf16 at full depth (a measured fact, not a check); in
+   both, filling the never-written 65th slot with noise must leave the
+   logits and tokens bit-equal (the mask leaks nothing). The
+   train twin (``repro_torch.examples.workflow_train``): 8 x 512-token
+   batches, data_prep, 3 phases of 2 steps with a pod failure on
+   phase_2 and a retry that resumes from the checkpoint, then eval
+   (one retry, a falling loss, a finite eval loss, 24 K1 launches a
+   step and in the eval forward, the order consistent). Last, a diamond
+   of four ``matmul_payload(n=8192, iters=4)`` pods, their seconds
+   beside the f32-peak bound.
+7. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the four served models' prefills, ``launches_by_arch`` per model,
-   ``at`` its numbers at each model's prefill shape), the ``nvidia-smi``
-   line, and last the ``{"ok": true, "device": ...}`` line.
+   ``at`` its numbers at each model's prefill shape; K1's also per
+   workflow pod), the ``nvidia-smi`` line, and last the
+   ``{"ok": true, "device": ...}`` line.
 
 It needs CUDA: without a card it exits with code 2 before doing anything.
 """
@@ -107,6 +128,11 @@ K1_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # FlashAttentionFn vs plain 
 TRAIN_PLAIN_TOL = 1e-4            # f32 step, kernels vs plain: loss, grad norm, grads (rel), params
 RESUME_TOL = 1e-6                 # step 5 from the checkpoint vs the uninterrupted step 5
 TRAIN_PLAIN_LAYERS = 4            # depth of the f32 kernels-vs-plain step (full widths)
+WF_GEN = 65                       # the serve workflow grows the cache by G, takes G - 1 steps
+CACHE_LEN_LAYERS = 4              # depth of the f32 cache-length check (full widths)
+CACHE_LEN_TOL = 1e-5              # f32 logits, cache grown by 64 vs by 65 slots
+WF_TRAIN_STEPS, WF_TRAIN_PHASES = 6, 3
+MATMUL_N, MATMUL_ITERS = 8192, 4  # the diamond's matmul_payload pods
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
 # (bf16 on the tensor cores; f32 outside them).
@@ -409,24 +435,13 @@ def check_k2(gen) -> dict:
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
-def grow_cache(cache, extra: int):
-    """Room for ``extra`` more tokens along a KV cache's T axis.
-
-    An SSM cache holds a fixed-size state and no k/v: it is returned as it is.
-    """
-    import torch.nn.functional as F
-    if "k" not in cache:
-        return cache
-    pad = (0, 0, 0, 0, 0, extra)            # (L, B, T, K, hd): pad T at its end
-    return {**cache, "k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad)}
-
-
 def greedy_decode(decode, params, logits, cache, steps: int):
     """Greedy tokens after a prefill: the prefill's own, then one per step.
 
     Returns (tokens (B, 1 + steps), last logits, cache).
     """
     import torch
+    from repro_torch.runtime.serve import grow_cache
     cache = grow_cache(cache, steps)
     tok = logits[:, -1:].argmax(dim=-1)
     out = [tok]
@@ -546,6 +561,7 @@ def consistency(cfg, *, device: str, prefill_batch: int, prefill_len: int,
     prefill + decode vs forward."""
     import torch
     from repro_torch.models import RunConfig, build
+    from repro_torch.runtime.serve import grow_cache
 
     rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device=device)
     model = build(cfg, rc)
@@ -759,6 +775,124 @@ def train_consistency(cfg, *, device: str, batch: int, seq_len: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Workflows: the port's KubeAdaptor engine running the pods
+# ---------------------------------------------------------------------------
+def serve_workflow(cfg, *, device: str, batch: int, prompt_len: int, gen: int) -> dict:
+    """The serve twin in bf16 (plain loop, then prefill pod -> decode pod),
+    with the counts set to 0 just before it and read just after."""
+    import torch
+    from repro_torch.examples import serve_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import RunConfig, build
+
+    rc = RunConfig(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device=device)
+    params = build(cfg, rc).init(torch.Generator(device=device).manual_seed(SEED))
+    prompts = make_prompts(cfg, batch, prompt_len, device)
+    ops.attention.launches = ops.ssd.launches = 0
+    out = serve_batch.run(cfg, params, prompts, gen=gen, rc=rc)
+    out["launches"] = _launches()
+    return out
+
+
+def cache_length(cfg, *, device: str, dtype, batch: int, prompt_len: int,
+                 steps: int) -> dict:
+    """Greedy decode of ``steps`` tokens after one prefill, with the KV cache
+    grown by ``steps`` slots, by ``steps + 1`` (the serve workflow's
+    geometry: the last slot is never written and stays masked), and by
+    ``steps + 1`` with that last slot's k and v filled with noise.
+
+    Returns the largest difference of the first two runs' decode logits,
+    the largest |logit|, how many of their tokens differ, and whether the
+    third run's logits and tokens are bit-equal to the second's: a masked
+    slot that leaked into the output would break that equality, while a
+    rounding that depends on the cache length cannot, since the second
+    and third runs have the same length.
+    """
+    import torch
+    from repro_torch.examples.serve_batch import first_token
+    from repro_torch.models import RunConfig, build
+    from repro_torch.runtime.serve import grow_cache
+
+    rc = RunConfig(param_dtype=dtype, compute_dtype=dtype, device=device)
+    model = build(cfg, rc)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    logits, cache0 = model.prefill(params, {"tokens": make_prompts(cfg, batch, prompt_len,
+                                                                   device)})
+    noise = torch.Generator(device=device).manual_seed(SEED + 1)
+    runs = []
+    for extra, fill in ((steps, False), (steps + 1, False), (steps + 1, True)):
+        cache = grow_cache(cache0, extra)
+        if fill:                        # the slot that no step writes
+            for name in ("k", "v"):
+                last = cache[name][:, :, -1]
+                last.copy_(10 * torch.randn(last.shape, generator=noise, device=device))
+        toks, lgs = [first_token(logits)], []
+        for _ in range(steps):
+            lg, cache = model.decode(params, cache, {"tokens": toks[-1]})
+            toks.append(lg.argmax(dim=-1))
+            lgs.append(lg.float())
+        runs.append((torch.cat(toks, dim=1), torch.cat(lgs, dim=1)))
+    (tok_a, lg_a), (tok_b, lg_b), (tok_c, lg_c) = runs
+    _check(bool(torch.isfinite(lg_a).all() and torch.isfinite(lg_b).all()),
+           "non-finite decode logits")
+    return {"logits_max_abs_diff": float((lg_a - lg_b).abs().max()),
+            "max_abs_logit": float(lg_a.abs().max()),
+            "tokens_differ": int((tok_a != tok_b).sum()), "tokens": tok_a.numel(),
+            "masked_slot_inert": torch.equal(tok_b, tok_c) and torch.equal(lg_b, lg_c)}
+
+
+def train_workflow(cfg, *, device: str, batch: int, seq_len: int, steps: int,
+                   phases: int, ckpt_dir) -> dict:
+    """The train twin (f32 params, bf16 compute), with the counts set to 0
+    just before it and read just after."""
+    import torch
+    from repro_torch.examples import workflow_train
+    from repro_torch.kernels import ops
+    from repro_torch.models import RunConfig
+
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.bfloat16, device=device)
+    ops.attention.launches = ops.ssd.launches = 0
+    out = workflow_train.run(cfg, steps=steps, phases=phases, batch=batch, seq=seq_len,
+                             rc=rc, ckpt_dir=ckpt_dir)
+    out["launches"] = _launches()
+    return out
+
+
+def matmul_bound_s(n: int, iters: int) -> float:
+    """The least time of ``matmul_payload(n, iters)``'s products on an H100:
+    2 n^3 FLOPs a step at the f32 peak outside the tensor cores (the
+    elementwise work and the host-to-device copy of x are left out)."""
+    return iters * 2 * n ** 3 / PEAK_FLOP_PER_S["float32"]
+
+
+def matmul_diamond(*, device: str, n: int, iters: int) -> dict:
+    """A diamond DAG (0 -> 1, 2 -> 3) of ``matmul_payload`` pods under the
+    engine with ``payload_mode="real"``: each pod's seconds (its virtual
+    run time is its wall time) and output."""
+    from repro_torch.core.dag import Task, Workflow
+    from repro_torch.core.payloads import matmul_payload
+    from repro_torch.core.runner import ControlPlane
+
+    mm = matmul_payload(n=n, iters=iters, device=device)
+    outs = {}
+
+    def pod(volume, task):
+        mm(volume, task)
+        outs[task.id] = volume.get(f"{task.id}/out")
+    edges = {"0": ([], ["1", "2"]), "1": (["0"], ["3"]), "2": (["0"], ["3"]),
+             "3": (["1", "2"], [])}
+    wf = Workflow("diamond", {tid: Task(id=tid, inputs=i, outputs=o, payload=pod)
+                              for tid, (i, o) in edges.items()})
+    plane = ControlPlane("kubeadaptor", payload_mode="real", seed=SEED)
+    plane.gateway.load([wf.with_instance(0)])
+    res = plane.run()
+    seconds = {p.task_id: p.finished - p.started for p in res.cluster.pod_log
+               if p.task_id in edges}
+    return {"pod_seconds": seconds, "outputs": outs,
+            "order_consistent": res.metrics.order_consistent(wf.with_instance(0))}
+
+
+# ---------------------------------------------------------------------------
 def _phase_done(n: int, t0: float, what: str = "") -> float:
     """Print phase ``n``'s seconds since ``t0``; return the time now."""
     now = time.perf_counter()
@@ -803,7 +937,7 @@ def main() -> int:
 
     # 3 and 4, for each model: serve at full width and depth in bf16, then f32
     # consistency
-    served = {}
+    served, serve_ms = {}, {}
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
         res = serve(cfg, device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
@@ -821,6 +955,7 @@ def main() -> int:
         _check(res["request_launches"] == expect,
                f"{arch} request launched {res['request_launches']}, not {expect}")
         served[arch] = res["prefill_launches"]
+        serve_ms[arch] = (res["prefill_ms"], res["decode_ms_per_step"])
         del res
         torch.cuda.empty_cache()             # the bf16 model is gone before [4]
         t_phase = _phase_done(3, t_phase, arch)
@@ -885,9 +1020,84 @@ def main() -> int:
     _check(all(errs["grads_scale"][f"blocks/attn/{w}"] > 0 for w in ("wq", "wk", "wv")),
            f"zero q/k/v projection gradient: {errs['grads_scale']}")
     torch.cuda.empty_cache()
-    _phase_done(5, t_phase)
+    t_phase = _phase_done(5, t_phase)
 
-    # 6. results; the ok line is last
+    # 6. the workflows: the port's KubeAdaptor engine running the pods
+    wf = serve_workflow(cfg, device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+                        gen=WF_GEN)
+    print(f"[6] {ARCH} serve workflow (plain loop, then prefill pod -> decode pod; "
+          f"{SERVE_BATCH} x {PROMPT_LEN} tokens, cache grown by {WF_GEN}, {WF_GEN - 1} "
+          f"decode steps, bf16): tokens bit-equal to the plain loop's "
+          f"({wf['tokens'].numel()} tokens); plain loop {wf['plain_seconds']:.3f} s; "
+          f"pod seconds {json.dumps(wf['pod_seconds'])} ([3]: prefill "
+          f"{serve_ms[ARCH][0]:.3f} ms, decode {serve_ms[ARCH][1]:.3f} ms/step); K1 "
+          f"launches by pod {wf['k1_launches']}, whole run {wf['launches']}; virtual "
+          f"lifecycle {wf['lifecycle']:.3f} s; order_consistent={wf['order_consistent']}",
+          flush=True)
+    _check(torch.equal(wf["tokens"], wf["plain_tokens"]), "workflow tokens differ")
+    _check(wf["order_consistent"], "the serve workflow ran out of order")
+    _check(wf["k1_launches"] == {"prefill": cfg.n_layers, "decode": 0},
+           f"serve workflow K1 launches by pod {wf['k1_launches']}")
+    _check(wf["launches"] == {"attention": 2 * cfg.n_layers, "ssd": 0},
+           f"serve workflow launched {wf['launches']}")
+    serve_pod_launches = wf.pop("k1_launches")
+    del wf
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=CACHE_LEN_LAYERS)
+    cl32 = cache_length(cut, device="cuda", dtype=torch.float32, batch=SERVE_BATCH,
+                        prompt_len=PROMPT_LEN, steps=WF_GEN - 1)
+    cl16 = cache_length(cfg, device="cuda", dtype=torch.bfloat16, batch=SERVE_BATCH,
+                        prompt_len=PROMPT_LEN, steps=WF_GEN - 1)
+    print(f"[6] cache grown by {WF_GEN - 1} vs {WF_GEN} slots, {WF_GEN - 1} greedy steps: "
+          f"f32 ({CACHE_LEN_LAYERS} layers, full widths): logits max abs diff "
+          f"{cl32['logits_max_abs_diff']:.3e} (tol {CACHE_LEN_TOL:g}, max |logit| "
+          f"{cl32['max_abs_logit']:.3g}), {cl32['tokens_differ']} of {cl32['tokens']} "
+          f"tokens differ; bf16 ({cfg.n_layers} layers, measured, not a check): "
+          f"{cl16['tokens_differ']} of {cl16['tokens']} tokens differ, logits max abs "
+          f"diff {cl16['logits_max_abs_diff']:.3e}; the never-written slot filled with "
+          f"noise: logits and tokens bit-equal in f32 {cl32['masked_slot_inert']}, in bf16 "
+          f"{cl16['masked_slot_inert']}", flush=True)
+    _check(cl32["logits_max_abs_diff"] <= CACHE_LEN_TOL and cl32["tokens_differ"] == 0,
+           f"f32 decode depends on the cache length: {cl32}")
+    _check(cl32["masked_slot_inert"] and cl16["masked_slot_inert"],
+           "a masked cache slot changes the decode")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wf_") as ckpt_dir:
+        tw = train_workflow(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
+                            steps=WF_TRAIN_STEPS, phases=WF_TRAIN_PHASES, ckpt_dir=ckpt_dir)
+    print(f"[6] {ARCH} train workflow (data_prep -> {WF_TRAIN_PHASES} phases of "
+          f"{WF_TRAIN_STEPS // WF_TRAIN_PHASES} steps, {TRAIN_BATCH} x {TRAIN_LEN} tokens, "
+          f"a failure on phase_2 at t={tw['failed_at'][0]:.3f} s -> eval): losses "
+          f"{tw['losses']}, eval loss {tw['eval_loss']:.6f}, retries {tw['retries']}, "
+          f"latest step {tw['latest_step']}, K1 launches per step {tw['step_k1_launches']}, "
+          f"by pod run {json.dumps(tw['pod_k1_launches'])}, whole run {tw['launches']}; "
+          f"pod seconds {json.dumps(tw['pod_seconds'])}; virtual lifecycle "
+          f"{tw['lifecycle']:.3f} s; order_consistent={tw['order_consistent']}", flush=True)
+    _check(tw["retries"] == 1 and tw["order_consistent"], f"train workflow: {tw['retries']} "
+           f"retries, order_consistent={tw['order_consistent']}")
+    _check(tw["losses"][-1] < tw["losses"][0] and all(np.isfinite(tw["losses"]))
+           and np.isfinite(tw["eval_loss"]), f"train workflow losses {tw['losses']}")
+    _check(tw["latest_step"] == WF_TRAIN_STEPS and len(tw["losses"]) == WF_TRAIN_STEPS,
+           f"latest step {tw['latest_step']}, {len(tw['losses'])} losses")
+    _check(tw["step_k1_launches"] == [cfg.n_layers] * WF_TRAIN_STEPS
+           and tw["pod_k1_launches"]["eval"] == [cfg.n_layers],
+           f"train workflow K1 launches {tw['step_k1_launches']}, {tw['pod_k1_launches']}")
+    _check(tw["launches"] == {"attention": (WF_TRAIN_STEPS + 1) * cfg.n_layers, "ssd": 0},
+           f"train workflow launched {tw['launches']}")
+    torch.cuda.empty_cache()
+    mm = matmul_diamond(device="cuda", n=MATMUL_N, iters=MATMUL_ITERS)
+    bound_s = matmul_bound_s(MATMUL_N, MATMUL_ITERS)
+    print(f"[6] diamond of matmul_payload(n={MATMUL_N}, iters={MATMUL_ITERS}) pods: pod "
+          f"seconds {json.dumps(mm['pod_seconds'])}, f32-peak bound {bound_s:.6f} s a pod "
+          f"(the products alone); y[0, :4] {mm['outputs']['0'].tolist()}; "
+          f"order_consistent={mm['order_consistent']}", flush=True)
+    _check(mm["order_consistent"] and sorted(mm["pod_seconds"]) == ["0", "1", "2", "3"],
+           f"matmul diamond: {mm['pod_seconds']}")
+    _check(all(np.isfinite(y).all() and np.array_equal(y, mm["outputs"]["0"])
+               for y in mm["outputs"].values()), f"matmul pods' outputs {mm['outputs']}")
+    _phase_done(6, t_phase)
+
+    # 7. results; the ok line is last
     # launches: the sum over the served models' timed prefills (each counted
     # from 0), and per model
     for entry, kernel in ((k1, "attention"), (k2, "ssd")):
@@ -895,6 +1105,9 @@ def main() -> int:
         entry["launches"] = sum(entry["launches_by_arch"].values())
     k1["train_launches_per_step"] = res["launches_per_step"][0]["attention"]
     k1.update({f"train_{key}": val for key, val in k1_grad.items()})
+    k1["workflow_serve_launches_by_pod"] = serve_pod_launches
+    k1["workflow_train_launches_per_step"] = tw["step_k1_launches"][0]
+    k1["workflow_eval_launches"] = tw["pod_k1_launches"]["eval"][0]
     print(json.dumps({"kernels": [k1, k2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

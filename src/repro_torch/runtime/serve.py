@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch.nn.functional as F
+
 from repro_torch.models import RunConfig, build
 from repro_torch.runtime.specs import decode_batch_specs, prefill_batch_specs
 
@@ -46,3 +48,16 @@ def build_decode_step(cfg, shape_cfg, mesh=None, *,
     return (model.decode, model.init_eval_shape(),
             model.init_cache_eval_shape(B, S), decode_batch_specs(cfg, B),
             None, model)
+
+
+def grow_cache(cache, extra: int):
+    """Room for ``extra`` more tokens along a KV cache's T axis, zero-filled.
+
+    The k/v of shape (L, B, T, K, hd) are padded at the end of T, as the
+    JAX serving example does with ``jnp.pad`` before it decodes. An SSM
+    cache holds a fixed-size state and no k/v: it is returned as it is.
+    """
+    if "k" not in cache:
+        return cache
+    pad = (0, 0, 0, 0, 0, extra)            # (L, B, T, K, hd): pad T at its end
+    return {**cache, "k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad)}

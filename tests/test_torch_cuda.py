@@ -344,3 +344,40 @@ def test_reduced_qwen2_trains_on_card(card, compute):
     assert float(m2["loss"]) < float(m1["loss"])
     assert int(state.step) == 2
 
+
+
+@pytest.mark.cuda
+def test_matmul_payload_on_card(card):
+    """The engine's real payload on the card: synchronised before it returns,
+    finite, and the CPU run's ``y[0, :4]`` within 1e-4 (f32, TF32 off)."""
+    from repro_torch.core.dag import Task
+    from repro_torch.core.payloads import matmul_payload
+
+    class Volume(dict):
+        def put(self, key, value):
+            self[key] = value
+    got, expect = Volume(), Volume()
+    task = Task(id="mm")
+    matmul_payload(n=256)(got, task)                      # cuda: the default device
+    assert torch.cuda.current_stream().query()            # nothing left queued
+    matmul_payload(n=256, device="cpu")(expect, task)
+    assert np.isfinite(got["mm/out"]).all()
+    np.testing.assert_allclose(got["mm/out"], expect["mm/out"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_serve_twin_on_card(card, compute):
+    """The serve twin at reduced size on the card: the workflow's tokens are
+    bit-equal to the plain loop's (the twin raises otherwise) and K1
+    launches once per layer in the prefill pod, never in the decode pod."""
+    from repro_torch.examples import serve_batch
+    cfg = get_config("qwen2-0.5b").reduced()
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=TORCH_DTYPE[compute],
+                   device="cuda")
+    params = build(cfg, rc).init(torch.Generator(device=card).manual_seed(0))
+    prompts = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (8, 32))).to(card)
+    out = serve_batch.run(cfg, params, prompts, gen=32, rc=rc)
+    assert torch.equal(out["tokens"], out["plain_tokens"]) and out["order_consistent"]
+    assert out["k1_launches"] == {"prefill": cfg.n_layers, "decode": 0}

@@ -290,11 +290,20 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 32, mods\n"
+        "assert len(mods) >= 64, mods\n"
         "named = {'repro_torch.optim.adamw', 'repro_torch.parallel.compression',\n"
         "         'repro_torch.runtime.train', 'repro_torch.data.pipeline',\n"
         "         'repro_torch.checkpoint.checkpointer', 'repro_torch.tree',\n"
-        "         'repro_torch.configs.zamba2_1p2b', 'repro_torch.configs.gemma_7b'}\n"
+        "         'repro_torch.configs.zamba2_1p2b', 'repro_torch.configs.gemma_7b',\n"
+        "         'repro_torch.configs.workflows', 'repro_torch.examples',\n"
+        "         'repro_torch.examples.serve_batch', 'repro_torch.examples.workflow_train',\n"
+        "         'repro_torch.core', 'repro_torch.core.policy'}\n"
+        "named |= {f'repro_torch.core.{m}' for m in (\n"
+        "    'autoscaler', 'baselines', 'calibration', 'chaos', 'cluster', 'dag',\n"
+        "    'descheduler', 'engine', 'events', 'gateway', 'informer', 'injector',\n"
+        "    'metrics', 'payloads', 'resources', 'runner', 'schedulers', 'shuffle',\n"
+        "    'sim', 'stats', 'volumes', 'policy.filters', 'policy.ordering',\n"
+        "    'policy.pipeline', 'policy.preemption', 'policy.reservations')}\n"
         "assert named <= set(mods), sorted(named - set(mods))\n"
         "print(len(mods))\n"
     )

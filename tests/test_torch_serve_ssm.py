@@ -33,7 +33,8 @@ from repro_torch.convert import cache_from_jax, params_from_jax  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import RunConfig, build  # noqa: E402
 from repro_torch.models.ssm import SSMState  # noqa: E402
-from repro_torch.runtime.serve import build_decode_step, build_prefill_step  # noqa: E402
+from repro_torch.runtime.serve import (build_decode_step, build_prefill_step,  # noqa: E402
+                                       grow_cache)
 
 ARCH = "mamba2-2.7b"
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -258,7 +259,7 @@ def test_chip_smoke_ssm_phases_rehearse_on_cpu(chip_smoke):
     no_card = {"attention": 0, "ssd": 0}
     assert res["prefill_launches"] == res["request_launches"] == no_card
     cache = {"ssm": "a state", "pos": 3}
-    assert chip_smoke.grow_cache(cache, 5) is cache
+    assert grow_cache(cache, 5) is cache
     errs = chip_smoke.consistency(cfg, device="cpu", prefill_batch=2, prefill_len=16,
                                   batch=2, seq_len=12, split=5)
     assert errs["prefill_kernels_vs_plain"] == 0.0
