@@ -11,10 +11,11 @@ Phases; any failure exits non-zero and prints no result line:
 2. Kernels: K1 (flash attention) against its plain version at the
    prefill shape of each served model with attention (B=8, S=512):
    qwen2-0.5b (H=14 query heads over K=2 KV heads, hd=64; causal and
-   not, bf16 and f32), zamba2-1.2b's shared block (H=K=32, hd=64) and
+   not, bf16 and f32), qwen2-1.5b (H=12 over K=2, hd=128),
+   zamba2-1.2b's shared block (H=K=32, hd=64) and
    gemma-7b (H=K=16, hd=256; causal and not, bf16 and f32); at K = H
    and K = 1, at a ragged S and T (also at hd 256 with GQA) and at
-   head_dim 32 and 128. Each of the three prefill shapes is timed with
+   head_dim 32 and 128. Each of the four prefill shapes is timed with
    CUDA events beside the plain version, PyTorch's
    ``scaled_dot_product_attention`` on the full-H (``repeat_kv``) k/v
    (a yardstick only; the port never calls it) and the bound. K2 (the
@@ -28,7 +29,7 @@ Phases; any failure exits non-zero and prints no result line:
    f32 operand). Both prefill shapes are timed beside ``ssd_chunked``
    and the bound (and mamba2's beside ``ssd_ref``; no single PyTorch
    call computes it).
-3. Serve: full-width qwen2-0.5b, mamba2-2.7b, zamba2-1.2b (hybrid: 38
+3. Serve: full-width qwen2-0.5b, qwen2-1.5b, mamba2-2.7b, zamba2-1.2b (hybrid: 38
    Mamba2 layers and one shared attention block applied after every
    6th) and gemma-7b (head_dim 256), each at full depth, in bf16 with
    seeded random weights, built through ``runtime.serve``, each
@@ -80,10 +81,42 @@ Phases; any failure exits non-zero and prints no result line:
    step and in the eval forward, the order consistent). Last, a diamond
    of four ``matmul_payload(n=8192, iters=4)`` pods, their seconds
    beside the f32-peak bound.
-7. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
-   over the four served models' prefills, ``launches_by_arch`` per model,
-   ``at`` its numbers at each model's prefill shape; K1's also per
-   workflow pod), the ``nvidia-smi`` line, and last the
+7. Train the ssm and hybrid families, and remat, each part with the
+   counts set to 0 first. (a) K2 under a gradient (``SSDScanFn``: K2
+   forward, the autograd of ``ssd_chunked`` as backward) at the train
+   shapes of zamba2-1.2b and mamba2-2.7b (B=8, S=512, chunk 32), bf16
+   and f32, with and without an initial state: every gradient against
+   autograd through ``ssd_chunked`` on the same tensors (1e-6 of its
+   largest value), and at b=2, s=64 against autograd through
+   ``ref.ssd_ref`` (f32 2e-3, bf16 5e-2); one K2 launch a forward, none
+   in the backward; the forward's ms at chunk 32 beside its bound and
+   the backward's ms a layer. (b) 8 AdamW steps of full-width,
+   full-depth zamba2-1.2b (f32 params, bf16 compute,
+   ``RunConfig(remat=True, remat_policy="full", ssd_chunk=32)``) on
+   8 x 512-token batches: a falling, finite loss and
+   ``expected_train_launches`` a step (K1 6: the shared block is not
+   rematted; K2 76: the forward and the backward's recompute); peak
+   learning rate 1e-4 (at phase 5's 3e-4 the Mamba2 losses jump at step
+   3 with the plain versions as with the kernels:
+   ``scripts/probe_train_lr.py``). (c) 4
+   steps of mamba2-2.7b at full width cut to 16 of its 64 layers (its
+   f32 train state at full depth, 79 GB, does not fit beside the
+   activations): K2 32 a step. (d) 4 steps of full-width, full-depth
+   qwen2-1.5b under remat: K1 56 a step. Each prints its median step
+   ms, trained tokens/s and peak memory. (e) An f32 step of zamba2-1.2b
+   at full width cut to 6 layers (one full segment, so one shared-block
+   application) with the kernels against the same step with their plain
+   versions, at phase 5's bounds, the Mamba2 projections', A_log's and
+   the shared block's q/k/v gradients non-zero. (f) On the same cut,
+   remat off, "full" and "dots" agree: losses within 1e-6 relative,
+   every gradient leaf within 1e-5 of its largest value (the
+   embedding's scatter-add is not deterministic); each one's peak
+   memory is printed.
+8. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
+   over the served models' prefills, ``launches_by_arch`` per model,
+   ``at`` its numbers at each model's prefill shape, and K2's at its
+   train shapes; ``train_launches_per_step_by_arch`` per trained model;
+   K1's also per workflow pod), the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It needs CUDA: without a card it exits with code 2 before doing anything.
@@ -99,6 +132,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -108,11 +142,12 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 ARCH = "qwen2-0.5b"               # the trained model, and K1's first timed shape
 SSM_ARCH = "mamba2-2.7b"          # K2's first timed shape
-SERVE_ARCHS = ("qwen2-0.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b")
+SERVE_ARCHS = ("qwen2-0.5b", "qwen2-1.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b")
 CONSISTENCY_LAYERS = {"gemma-7b": 4}   # depth cut of phase 4 (full widths)
 # the bf16 causal prefill shape each model hands a kernel: K1 (B, S, T, H, K, hd),
 # K2 (b, s, h, p, n, chunk)
 K1_SHAPES = {"qwen2-0.5b": (8, 512, 512, 14, 2, 64),
+             "qwen2-1.5b": (8, 512, 512, 12, 2, 128),
              "zamba2-1.2b": (8, 512, 512, 32, 32, 64),
              "gemma-7b": (8, 512, 512, 16, 16, 256)}
 K2_SHAPES = {"mamba2-2.7b": (8, 512, 80, 64, 128, 128),
@@ -133,6 +168,20 @@ CACHE_LEN_LAYERS = 4              # depth of the f32 cache-length check (full wi
 CACHE_LEN_TOL = 1e-5              # f32 logits, cache grown by 64 vs by 65 slots
 WF_TRAIN_STEPS, WF_TRAIN_PHASES = 6, 3
 MATMUL_N, MATMUL_ITERS = 8192, 4  # the diamond's matmul_payload pods
+# phase 7: the ssm and hybrid families' training, and remat
+SSD_TRAIN_CHUNK = 32              # the reference's train cells' chunk (launch/dryrun.py)
+K2_TRAIN_SHAPES = {arch: shape[:5] + (SSD_TRAIN_CHUNK,) for arch, shape in K2_SHAPES.items()}
+K2_GRAD_TOL = 1e-6                # SSDScanFn's gradients vs autograd through ssd_chunked
+K2_GRAD_REF_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # vs autograd through ssd_ref
+HYBRID_ARCH, SSM_TRAIN_LAYERS = "zamba2-1.2b", 16
+DENSE_REMAT_ARCH = "qwen2-1.5b"
+SSM_TRAIN_STEPS, DENSE_REMAT_STEPS = 4, 4
+# phase 7's peak learning rate: at phase 5's 3e-4 the loss of mamba2-2.7b
+# (16 layers) jumps at step 3 with the kernels and with their plain
+# versions alike (scripts/probe_train_lr.py --plain): Adam's step, not a kernel
+TRAIN_7_LR = 1e-4
+HYBRID_PLAIN_LAYERS = 6           # one full segment of attn_every = 6: one K1 application
+REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-6, 1e-5
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
 # (bf16 on the tensor cores; f32 outside them).
@@ -218,6 +267,8 @@ def check_k1(gen) -> dict:
         (8, 512, 512, 14, 2, 64, f32, True),
         (8, 512, 512, 14, 2, 64, f32, False),
         (8, 512, 512, 14, 14, 64, bf16, True),     # full-H k/v (K == H)
+        (8, 512, 512, 12, 2, 128, bf16, True),     # qwen2-1.5b's prefill, hd 128
+        (8, 512, 512, 12, 2, 128, f32, True),
         (8, 512, 512, 32, 32, 64, bf16, True),     # zamba2-1.2b's shared block
         (8, 512, 512, 16, 16, 256, bf16, True),    # gemma-7b's prefill, hd 256
         (8, 512, 512, 16, 16, 256, bf16, False),
@@ -652,38 +703,189 @@ def check_k1_grad(gen) -> dict:
     return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms}
 
 
+def _grads_rel_err(got, expect) -> float:
+    """Largest abs error over matching gradients, each over its expected
+    tensor's largest abs value."""
+    err = 0.0
+    for g, e in zip(got, expect):
+        scale = float(e.float().abs().max())
+        err = max(err, float((g.float() - e.float()).abs().max()) / (scale or 1.0))
+    return err
+
+
+def check_k2_grad(gen) -> dict:
+    """K2 under a gradient (``SSDScanFn``) against autograd through both plain
+    versions, and its times at the train shapes (``K2_TRAIN_SHAPES``).
+
+    Returns, per arch, the forward's ms at chunk 32 beside ``ssd_chunked``'s
+    and the bound, and the ms of ``SSDScanFn.backward`` (``ssd_chunked``
+    recomputed and its autograd) a layer.
+    """
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models.ssm import ssd_chunked
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    grads = torch.autograd.grad
+    cases = [(arch, shape, dtype, with_init)
+             for arch, shape in K2_TRAIN_SHAPES.items()
+             for dtype in (bf16, f32) for with_init in (False, True)]
+    cases += [(None, (2, 64) + shape[2:], dtype, with_init)     # small: against ssd_ref
+              for shape in K2_TRAIN_SHAPES.values()
+              for dtype in (bf16, f32) for with_init in (False, True)]
+    timed = {}
+    for arch, (b, s, h, p, n, chunk), dtype, with_init in cases:
+        x, dt, A, B, C, st = ssd_inputs(gen, b, s, h, p, n, dtype, dtype, with_init)
+        inputs = [t.requires_grad_(True) for t in (x, dt, A, B, C, st) if t is not None]
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        before = ops.ssd.launches
+        y, _ = ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=st)
+        _check(ops.ssd.launches == before + 1 and y.grad_fn is not None,
+               "ops.ssd under grad did not go through SSDScanFn")
+        got = grads(y, inputs, dy)
+        _check(ops.ssd.launches == before + 1, "SSDScanFn's backward launched K2")
+        _check(all(g.dtype == t.dtype for g, t in zip(got, inputs)),
+               f"gradient dtypes {[g.dtype for g in got]}")
+        chunked = grads(ssd_chunked(x, dt, A, B, C, chunk, init_state=st)[0], inputs, dy)
+        err = _grads_rel_err(got, chunked)
+        tol, vs = K2_GRAD_TOL, "ssd_chunked"
+        if arch is None:
+            err = _grads_rel_err(got, grads(ref.ssd_ref(x, dt, A, B, C, init_state=st)[0],
+                                            inputs, dy))
+            tol, vs = K2_GRAD_REF_TOL[_dtype_name(dtype)], "ssd_ref"
+        torch.cuda.synchronize()
+        print(f"  K2 grad b={b} s={s} h={h} p={p} n={n} chunk={chunk} {_dtype_name(dtype)} "
+              f"init_state={with_init} kernel={ssd_mod.kernel_path(dtype, dtype)}: x/dt/A/B/C"
+              f"{'/init' if with_init else ''} vs autograd through {vs}: max err "
+              f"{err:.3e} of the largest (tol {tol:g}) {'ok' if err <= tol else 'FAIL'}",
+              flush=True)
+        _check(err <= tol, f"K2's gradient disagrees with autograd through {vs}: {err}")
+        if arch is not None and dtype == bf16 and not with_init:
+            timed[arch] = [t.detach() for t in (x, dt, A, B, C)] + [dy]
+        del x, dt, A, B, C, st, inputs, y, got, chunked
+
+    at = {}
+    for arch, (x, dt, A, B, C, dy) in timed.items():
+        b, s, h, p, n, chunk = K2_TRAIN_SHAPES[arch]
+        err = _k2_err(f"{arch}'s train shape, y vs ssd_chunked",
+                      ops.ssd(x, dt, A, B, C, chunk=chunk)[0],
+                      ssd_chunked(x, dt, A, B, C, chunk)[0], K2_REF_TOL["bfloat16"])
+        ms = time_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk))
+        plain_ms = time_ms(lambda: ssd_chunked(x, dt, A, B, C, chunk), iters=10, warmup=2)
+        inputs = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+        y = ops.ssd(*inputs, chunk=chunk)[0]
+        bwd_ms = time_ms(lambda: grads(y, inputs, dy, retain_graph=True), iters=5, warmup=2)
+        bound_ms, bound_by = ssd_bound(b, s, h, p, n, chunk, bf16, bf16)
+        at[f"{arch} train"] = {
+            "shape": "b,s,h,p,n,chunk=" + ",".join(map(str, K2_TRAIN_SHAPES[arch])),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "bwd_ms": bwd_ms}
+        print(f"  K2 at {arch}'s train shape ({at[f'{arch} train']['shape']}, bf16): forward "
+              f"{ms:.4f} ms (plain ssd_chunked {plain_ms:.4f} ms), bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of the bound; backward (ssd_chunked "
+              f"recomputed + its autograd) {bwd_ms:.4f} ms a layer", flush=True)
+    return at
+
+
+def remat_agreement(cfg, *, device: str, batch: int, seq_len: int) -> dict:
+    """One f32 forward + backward of ``cfg`` (the train chunk) with remat off,
+    ``"full"`` and ``"dots"``, from one state and one batch: each one's loss,
+    gradient leaves, peak memory and launches."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import RunConfig, build
+    from repro_torch.runtime.train import value_and_grad
+    from repro_torch.tree import tree_flatten_with_path
+
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device=device,
+                   ssd_chunk=SSD_TRAIN_CHUNK)
+    params = build(cfg, rc).init(torch.Generator(device=device).manual_seed(SEED))
+    b = to_device(next(SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size,
+                                              seed=SEED))), device)
+    runs = {}
+    for name, kw in (("off", {}), ("full", dict(remat=True, remat_policy="full")),
+                     ("dots", dict(remat=True, remat_policy="dots"))):
+        model = build(cfg, rc.replace(**kw))
+        _sync(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.attention.launches = ops.ssd.launches = 0
+        loss, grads = value_and_grad(model.loss, params, b)
+        _sync(device)
+        runs[name] = {"loss": float(loss), "grads": tree_flatten_with_path(grads),
+                      "launches": _launches(),
+                      "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                               if torch.device(device).type == "cuda"
+                                               else None)}
+    base = runs["off"]
+    return {name: {"loss": run["loss"],
+                   "loss_rel": abs(run["loss"] - base["loss"]) / abs(base["loss"]),
+                   "grads_rel": _grads_rel_err([run["grads"][k] for k in base["grads"]],
+                                               list(base["grads"].values())),
+                   "launches": run["launches"],
+                   "max_memory_allocated": run["max_memory_allocated"]}
+            for name, run in runs.items()}
+
+
 def _max_abs_diff(a, b) -> float:
     from repro_torch.tree import tree_leaves
     return max(float((x.float() - y.float()).abs().max())
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def train(cfg, *, device: str, batch: int, seq_len: int, steps: int, resume_after: int,
-          ckpt_dir) -> dict:
-    """``steps`` AdamW steps on ``SyntheticLM`` batches through ``runtime.train``.
+def train_rc(device: str, **kw):
+    """The train steps' RunConfig: f32 params, bf16 compute, on ``device``."""
+    import torch
+    from repro_torch.models import RunConfig
+    return RunConfig(param_dtype=torch.float32, compute_dtype=torch.bfloat16,
+                     device=device, **kw)
 
-    A checkpoint saved after step ``resume_after`` is restored into a
-    fresh (meta) state and step ``resume_after + 1`` is taken again from
-    it. Returns the per-step metrics and times, the launches of each
+
+def expected_train_launches(cfg, rc) -> dict:
+    """K1 and K2 launches of one train step of ``cfg`` under ``rc``.
+
+    As in a prefill (``expected_launches``), but a block that ``rc.remat``
+    checkpoints runs its forward again in the backward, kernel and all
+    (``SSDScanFn`` and ``FlashAttentionFn`` are no matmuls, so
+    ``remat_policy="dots"`` recomputes them too); the backwards launch
+    none. The hybrid's shared block is not checkpointed, as in the JAX
+    package."""
+    once = expected_launches(cfg)
+    again = 2 if rc.remat else 1
+    if cfg.family == "hybrid":
+        return {"attention": once["attention"], "ssd": again * once["ssd"]}
+    return {k: again * n for k, n in once.items()}
+
+
+def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
+          resume_after: Optional[int] = None, ckpt_dir=None, rc=None,
+          lr: float = 3e-4) -> dict:
+    """``steps`` AdamW steps on ``SyntheticLM`` batches through ``runtime.train``,
+    under ``rc`` (``train_rc(device)`` when None), at peak learning rate
+    ``lr`` (2 warmup steps, then the cosine to ``steps``).
+
+    With ``resume_after``, a checkpoint saved after that step is restored
+    into a fresh (meta) state and step ``resume_after + 1`` is taken again
+    from it. Returns the per-step metrics and times, the launches of each
     kernel per step, the peak memory and the resume errors.
     """
     import torch
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
     from repro_torch.kernels import ops
-    from repro_torch.models import RunConfig
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.runtime.train import (TrainRunConfig, build_train_step,
                                            init_sharded_state)
     from repro_torch.tree import tree_map
 
-    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.bfloat16, device=device)
-    trc = TrainRunConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps))
+    rc = rc or train_rc(device)
+    trc = TrainRunConfig(opt=OptConfig(lr=lr, warmup_steps=2, total_steps=steps))
     step, state_meta, _, _, _, model = build_train_step(cfg, None, B=batch, S=seq_len,
                                                         rc=rc, trc=trc)
     state = init_sharded_state(model, None, None, SEED)
     data = SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size, seed=SEED))
-    ckpt = Checkpointer(ckpt_dir, keep=1)
 
     _sync(device)
     if torch.device(device).type == "cuda":
@@ -702,10 +904,11 @@ def train(cfg, *, device: str, batch: int, seq_len: int, steps: int, resume_afte
         metrics.append({k: float(v) for k, v in met.items()})
         if i == resume_after:
             t0 = time.perf_counter()
+            ckpt = Checkpointer(ckpt_dir, keep=1)
             ckpt.save(state, i)
             ckpt.wait()
             save_s = time.perf_counter() - t0
-        if i == resume_after + 1:
+        if resume_after is not None and i == resume_after + 1:
             # held on the host, so that it takes no room in the card's peak memory
             after_resume = tree_map(lambda t: t.to("cpu", copy=True), state.params)
             batch_resume = b
@@ -713,6 +916,16 @@ def train(cfg, *, device: str, batch: int, seq_len: int, steps: int, resume_afte
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else None)
     del state
+    timed = step_ms[1:] or step_ms
+    out = {
+        "metrics": metrics, "step_ms": step_ms,
+        "median_step_ms": statistics.median(timed),
+        "tokens_per_s": batch * seq_len / (statistics.median(timed) / 1e3),
+        "launches_per_step": launches, "launches": total_launches,
+        "max_memory_allocated": peak,
+    }
+    if resume_after is None:
+        return out
 
     t0 = time.perf_counter()
     restored = ckpt.restore(state_meta, device=device)
@@ -723,21 +936,15 @@ def train(cfg, *, device: str, batch: int, seq_len: int, steps: int, resume_afte
     loss_err = abs(float(met["loss"]) - metrics[resume_after]["loss"])
     params_err = _max_abs_diff(tree_map(lambda t: t.to("cpu"), resumed.params),
                                after_resume)
-    timed = step_ms[1:] or step_ms
-    return {
-        "metrics": metrics, "step_ms": step_ms,
-        "median_step_ms": statistics.median(timed),
-        "tokens_per_s": batch * seq_len / (statistics.median(timed) / 1e3),
-        "launches_per_step": launches, "launches": total_launches,
-        "max_memory_allocated": peak, "save_s": save_s, "restore_s": restore_s,
-        "resume_loss_err": loss_err, "resume_params_err": params_err,
-    }
+    return {**out, "save_s": save_s, "restore_s": restore_s,
+            "resume_loss_err": loss_err, "resume_params_err": params_err}
 
 
-def train_consistency(cfg, *, device: str, batch: int, seq_len: int) -> dict:
+def train_consistency(cfg, *, device: str, batch: int, seq_len: int, **rc_kw) -> dict:
     """f32 errors of one train step with the kernels against the same step with
     their plain versions, from one state and one batch, and of its gradients
     leaf by leaf (max abs error over the plain leaf's max abs value).
+    ``rc_kw`` go to the RunConfig (remat, ssd_chunk).
 
     The gradients carry the check of K1's backward: at step 1 the learning
     rate is 3e-6 and Adam's first step is sign-normalised, so the updated
@@ -749,7 +956,8 @@ def train_consistency(cfg, *, device: str, batch: int, seq_len: int) -> dict:
     from repro_torch.runtime.train import build_train_step, init_sharded_state, value_and_grad
     from repro_torch.tree import tree_flatten_with_path
 
-    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device=device)
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device=device,
+                   **rc_kw)
     step, *_, model = build_train_step(cfg, None, B=batch, S=seq_len, rc=rc)
     state = init_sharded_state(model, None, None, SEED)
     b = to_device(next(SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size,
@@ -1095,15 +1303,88 @@ def main() -> int:
            f"matmul diamond: {mm['pod_seconds']}")
     _check(all(np.isfinite(y).all() and np.array_equal(y, mm["outputs"]["0"])
                for y in mm["outputs"].values()), f"matmul pods' outputs {mm['outputs']}")
-    _phase_done(6, t_phase)
+    t_phase = _phase_done(6, t_phase)
 
-    # 7. results; the ok line is last
+    # 7. the ssm and hybrid families' training, and remat
+    torch.cuda.empty_cache()
+    print("[7] (a) K2 under a gradient against autograd through its plain versions",
+          flush=True)
+    k2_train = check_k2_grad(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.empty_cache()
+    t_phase = _phase_done(7, t_phase, "(a)")
+    remat_rc = train_rc("cuda", remat=True, remat_policy="full", ssd_chunk=SSD_TRAIN_CHUNK)
+    train_launches = {}
+    for part, arch, layers, steps in (("b", HYBRID_ARCH, None, TRAIN_STEPS),
+                                      ("c", SSM_ARCH, SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS),
+                                      ("d", DENSE_REMAT_ARCH, None, DENSE_REMAT_STEPS)):
+        cfg = get_config(arch)
+        label = arch
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+            label = f"{arch} ({layers} of {get_config(arch).n_layers} layers)"
+        tr = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=steps,
+                   rc=remat_rc, lr=TRAIN_7_LR)
+        for i, (met, ms, la) in enumerate(zip(tr["metrics"], tr["step_ms"],
+                                              tr["launches_per_step"]), 1):
+            print(f"[7] ({part}) {label} train step {i}: loss {met['loss']:.6f} grad_norm "
+                  f"{met['grad_norm']:.6f} lr {met['lr']:.6e}, {ms:.3f} ms, launches {la}",
+                  flush=True)
+        print(f"[7] ({part}) {label}, remat \"full\", ssd_chunk {SSD_TRAIN_CHUNK}, peak lr "
+              f"{TRAIN_7_LR:g}: {steps} "
+              f"steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens: median step (2-{steps}) "
+              f"{tr['median_step_ms']:.3f} ms, {tr['tokens_per_s']:.1f} trained tokens/s, "
+              f"max_memory_allocated {tr['max_memory_allocated']} B", flush=True)
+        losses = [m["loss"] for m in tr["metrics"]]
+        _check(all(np.isfinite(losses)) and all(np.isfinite([m["grad_norm"]
+                                                              for m in tr["metrics"]])),
+               f"{label}: non-finite loss or grad norm")
+        _check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
+        per_step = expected_train_launches(cfg, remat_rc)
+        _check(all(la == per_step for la in tr["launches_per_step"]),
+               f"{label} train steps launched {tr['launches_per_step']}, not {per_step} each")
+        train_launches[label] = per_step
+        del tr
+        torch.cuda.empty_cache()
+        t_phase = _phase_done(7, t_phase, f"({part}) {arch}")
+
+    cut = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_PLAIN_LAYERS)
+    errs = train_consistency(cut, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
+                             remat=True, remat_policy="full", ssd_chunk=SSD_TRAIN_CHUNK)
+    print(f"[7] (e) {HYBRID_ARCH} cut to {HYBRID_PLAIN_LAYERS} layers, remat \"full\": f32 "
+          f"train step, kernels vs plain: {json.dumps(errs)}", flush=True)
+    _check(errs["loss_rel"] <= TRAIN_PLAIN_TOL and errs["grad_norm_rel"] <= TRAIN_PLAIN_TOL
+           and errs["params_abs"] <= TRAIN_PLAIN_TOL
+           and max(errs["grads_rel"].values()) <= TRAIN_PLAIN_TOL,
+           f"f32 hybrid train step, kernels vs plain, exceeds {TRAIN_PLAIN_TOL}: {errs}")
+    nonzero = ([f"blocks/mamba/{w}" for w in ("in_x", "in_B", "in_C", "in_dt", "A_log")]
+               + [f"shared_block/attn/{w}" for w in ("wq", "wk", "wv")])
+    _check(all(errs["grads_scale"][key] > 0 for key in nonzero),
+           f"a zero gradient among {nonzero}: {errs['grads_scale']}")
+    torch.cuda.empty_cache()
+    agree = remat_agreement(cut, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN)
+    print(f"[7] (f) {HYBRID_ARCH} cut to {HYBRID_PLAIN_LAYERS} layers, f32 forward + "
+          f"backward, remat off / \"full\" / \"dots\": {json.dumps(agree)}", flush=True)
+    for policy, run in agree.items():
+        _check(run["loss_rel"] <= REMAT_LOSS_TOL and run["grads_rel"] <= REMAT_GRAD_TOL,
+               f"remat {policy} changes the loss or the gradients: {run}")
+        _check(run["launches"] == expected_train_launches(
+                   cut, remat_rc.replace(remat=policy != "off")),
+               f"remat {policy} launched {run['launches']}")
+    torch.cuda.empty_cache()
+    _phase_done(7, t_phase, "(e, f)")
+
+    # 8. results; the ok line is last
     # launches: the sum over the served models' timed prefills (each counted
     # from 0), and per model
     for entry, kernel in ((k1, "attention"), (k2, "ssd")):
         entry["launches_by_arch"] = {arch: n[kernel] for arch, n in served.items()}
         entry["launches"] = sum(entry["launches_by_arch"].values())
     k1["train_launches_per_step"] = res["launches_per_step"][0]["attention"]
+    train_launches[ARCH] = res["launches_per_step"][0]
+    for entry, kernel in ((k1, "attention"), (k2, "ssd")):
+        entry["train_launches_per_step_by_arch"] = {
+            arch: n[kernel] for arch, n in train_launches.items() if n[kernel]}
+    k2["at"].update(k2_train)
     k1.update({f"train_{key}": val for key, val in k1_grad.items()})
     k1["workflow_serve_launches_by_pod"] = serve_pod_launches
     k1["workflow_train_launches_per_step"] = tw["step_k1_launches"][0]

@@ -72,9 +72,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import PROMPT_LEN, SEED, SERVE_BATCH, grow_cache, make_prompts
+    from chip_smoke import PROMPT_LEN, SEED, SERVE_BATCH, make_prompts
     from repro_torch.configs import get_config
     from repro_torch.models import RunConfig, build
+    from repro_torch.runtime.serve import grow_cache
 
     cfg = get_config(args.arch)
     rc = RunConfig(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda")

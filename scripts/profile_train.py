@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one CUDA card.
 
-    python3 scripts/profile_train.py
+    python3 scripts/profile_train.py [--arch ARCH] [--layers N] [--remat off|full]
 
-Builds full-width, full-depth qwen2-0.5b (f32 params, bf16 compute)
-with the seeded state and the ``SyntheticLM`` batches of
-``chip_smoke.py`` phase 5 (8 x 512 tokens), warms up with two steps,
+Builds the full-width model (qwen2-0.5b unless ``--arch`` names another
+of the port's configs; full depth unless ``--layers`` cuts it) with f32
+params and bf16 compute, ``RunConfig(remat=..., ssd_chunk=32)`` (remat
+off by default; chip_smoke.py phase 7 trains the ssm and hybrid
+families under "full"), with the seeded state and the ``SyntheticLM``
+batches of ``chip_smoke.py`` (8 x 512 tokens), warms up with two steps,
 then traces three windows with ``torch.profiler``: the forward and
 backward (``runtime.train.value_and_grad``), the AdamW update
 (``optim.adamw.apply_updates``) and a whole step. For each window it
@@ -13,11 +16,16 @@ prints the host time, the device busy time (the union of kernel
 intervals), the idle share, the kernel count and the kernels with the
 most device time; for the forward and backward also the operators with
 the most device time (the stacked blocks' per-layer index backward
-shows there as bf16 fills and adds of full-size stacked gradients).
-Then three unprofiled steps.
+shows there as bf16 fills and adds of full-size stacked gradients),
+and the device time inside each kernel's tensor-op backward
+(``SSDScanFnBackward``: ``ssd_chunked`` recomputed and its autograd;
+``FlashAttentionFnBackward``: ``ref.attention_bwd``), a layer and its
+share of the window. Then three unprofiled steps.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -42,24 +50,48 @@ def top_ops(prof, n: int = 15) -> None:
         print(f"    op {us / 1e3:9.3f} ms  {count:5d}x  {key[:100]}")
 
 
+def kernel_backwards(prof, busy_ms: float) -> None:
+    """Device time inside each kernel's backward node (inclusive of every
+    kernel its tensor ops launch), per call and as a share of ``busy_ms``."""
+    for e in prof.key_averages():
+        if not any(f"{fn}Backward" in e.key for fn in ("SSDScanFn", "FlashAttentionFn")):
+            continue
+        if not e.key.startswith("autograd::engine::evaluate_function"):
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        print(json.dumps({"backward": e.key.split(": ")[-1], "calls": e.count,
+                          "device_ms": us / 1e3, "device_ms_per_call": us / 1e3 / e.count,
+                          "share_of_busy": us / 1e3 / busy_ms}))
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--arch", default="qwen2-0.5b",
+                        help="one of repro_torch.configs.list_configs()")
+    parser.add_argument("--layers", type=int, default=0, help="depth cut (0: full depth)")
+    parser.add_argument("--remat", choices=("off", "full"), default="off")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import ARCH, SEED, TRAIN_BATCH, TRAIN_LEN
-    from profile_serve import report
+    from chip_smoke import SEED, SSD_TRAIN_CHUNK, TRAIN_BATCH, TRAIN_LEN, train_rc
+    from profile_serve import busy_us, report
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
-    from repro_torch.models import RunConfig
     from repro_torch.optim.adamw import OptConfig, apply_updates
     from repro_torch.runtime.train import (TrainRunConfig, build_train_step,
                                            init_sharded_state, value_and_grad)
 
-    cfg = get_config(ARCH)
-    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.bfloat16, device="cuda")
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    remat = {} if args.remat == "off" else dict(remat=True, remat_policy=args.remat)
+    rc = train_rc("cuda", ssd_chunk=SSD_TRAIN_CHUNK, **remat)
     trc = TrainRunConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=8))
     step, *_, model = build_train_step(cfg, None, B=TRAIN_BATCH, S=TRAIN_LEN, rc=rc, trc=trc)
     state = init_sharded_state(model, None, None, SEED)
@@ -70,7 +102,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     print(f"device: {torch.cuda.get_device_name(0)}; {cfg.name} layers={cfg.n_layers} "
-          f"B={TRAIN_BATCH} S={TRAIN_LEN}")
+          f"B={TRAIN_BATCH} S={TRAIN_LEN} remat={args.remat} ssd_chunk={SSD_TRAIN_CHUNK}")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def window(name, fn):
@@ -85,6 +117,9 @@ def main() -> int:
     prof, (_, grads) = window("forward_backward",
                               lambda: value_and_grad(model.loss, state.params, batches[2]))
     top_ops(prof)
+    from torch.autograd import DeviceType
+    kernel_backwards(prof, busy_us([e for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA]) / 1e3)
     with torch.no_grad():
         window("adamw", lambda: apply_updates(state, grads, trc.opt))
     del grads

@@ -9,11 +9,10 @@ the kernel launches made through it, so a run can show that its main
 path went through the kernel.
 
 A CUDA attention call always goes through ``FlashAttentionFn`` (K1
-forward, tensor-op backward), which records a graph only when a
-gradient is taken. Under a gradient (grad mode on and an input that
-requires grad) a CUDA SSD scan raises until the SSM-training slice
-gives K2 a backward, rather than return a tensor cut off from the
-graph.
+forward, tensor-op backward) and a CUDA SSD scan through ``SSDScanFn``
+(K2 forward, the autograd of ``ssd_chunked`` as backward). Each records
+a graph only when a gradient is taken (grad mode on and an input that
+requires grad); its backward launches no kernel.
 """
 from __future__ import annotations
 
@@ -24,11 +23,6 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd_mod
-
-
-def _under_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -56,17 +50,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         init_state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> (y (b,s,h,p) in x's dtype, final_state (b,h,p,n) f32).
 
-    CUDA: K2 (``csrc/ssd_scan.cu``); under a gradient it raises
-    ``NotImplementedError`` (K2 has no backward yet). CPU:
+    CUDA: K2 (``csrc/ssd_scan.cu``) through ``SSDScanFn``. CPU:
     ``models.ssm.ssd_chunked``, the JAX package's ``ops.ssd(impl="jnp")``
-    path.
+    path, whose autograd is the reference's.
     """
     if x.device.type == "cuda":
-        if _under_grad(x, dt, A, B, C, init_state):
-            raise NotImplementedError(
-                "a gradient through K2 (the SSD scan) comes with the SSM-training "
-                "slice; K2 has no backward yet")
-        out = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+        out = ssd_mod.SSDScanFn.apply(x, dt, A, B, C, chunk, init_state)
         ssd.launches += 1
         return out
     if x.device.type == "cpu":

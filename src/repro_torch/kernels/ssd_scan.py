@@ -8,6 +8,11 @@ dtypes alone choose the kernel (``kernel_path``): bf16 x with bf16 B/C
 runs the tensor-core scan, any f32 operand the scalar one. It takes
 CUDA tensors only; ``ops.ssd`` sends a CPU tensor to the plain version,
 ``models.ssm.ssd_chunked``.
+
+``SSDScanFn`` puts K2 under a gradient: its forward launches K2 and its
+backward is the autograd of ``models.ssm.ssd_chunked``, recomputed from
+the saved inputs in tensor ops (the Pallas kernel has no backward; the
+JAX model trains through XLA's autodiff of that jnp scan).
 """
 from __future__ import annotations
 
@@ -132,3 +137,37 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
         raise RuntimeError(f"K2 launch failed: CUDA error {rc} "
                            f"({error_string(rc).decode()})")
     return y, final_state
+
+
+class SSDScanFn(torch.autograd.Function):
+    """K2 forward, tensor-op backward (the autograd of ``ssd_chunked``).
+
+    ``apply(x, dt, A, B, C, chunk, init_state)`` launches K2 once and
+    saves its inputs; the backward launches no K2. It recomputes
+    ``models.ssm.ssd_chunked`` from the saved inputs under a gradient and
+    returns ``torch.autograd.grad`` of it, each gradient in its input's
+    dtype (None for ``init_state`` when there is none). The final state's
+    gradient may be None (a train step never uses the state).
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int, init_state):
+        y, final_state = ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final_state
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        from repro_torch.models.ssm import ssd_chunked   # models.ssm imports this module
+        saved = ctx.saved_tensors
+        inputs = [None if t is None else t.detach().requires_grad_(True) for t in saved]
+        with torch.enable_grad():
+            y, final_state = ssd_chunked(*inputs[:5], ctx.chunk, init_state=inputs[5])
+        outs = [(o, g) for o, g in ((y, dy), (final_state, dfinal)) if g is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in outs],
+                                         [t for t in inputs if t is not None],
+                                         [g for _, g in outs], materialize_grads=True))
+        dx, ddt, dA, dB, dC, dinit = (None if t is None else next(grads) for t in inputs)
+        return dx, ddt, dA, dB, dC, None, dinit

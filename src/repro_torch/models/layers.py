@@ -17,8 +17,12 @@ import torch.nn.functional as F
 class RunConfig:
     """How to *run* a model (orthogonal to ArchConfig = what the model is).
 
-    The JAX RunConfig's sharding, remat and attention-dispatch knobs have
-    no counterpart yet: the port runs on one card, its full-H attention
+    ``remat`` and ``remat_policy`` are the JAX package's: activation
+    checkpointing of each layer's block under a gradient
+    (``transformer._maybe_remat``); ``"dots"`` saves the matmul outputs
+    and recomputes the rest, any other policy recomputes the whole block.
+    The JAX RunConfig's sharding and attention-dispatch knobs have no
+    counterpart yet: the port runs on one card, its full-H attention
     always goes through ``kernels.ops.attention`` and its chunked SSD
     scan through ``kernels.ops.ssd``.
     """
@@ -26,6 +30,8 @@ class RunConfig:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     device: str = "cuda"
+    remat: bool = False                # activation checkpointing over blocks
+    remat_policy: str = "none"        # none | dots | everything
     ssd_chunk: int = 0                 # SSD chunk override (0 = ArchConfig's)
 
     def replace(self, **kw) -> "RunConfig":

@@ -9,13 +9,16 @@ Projections are separate tensors (x, z, B, C, dt), as in the JAX
 package. A depthwise causal conv (width 4) precedes x/B/C; with
 n_groups = 1, B and C are shared across SSD heads.
 
-``apply_mamba`` sends every multi-token scan (prefill, and a chunk that
-continues a state) through ``kernels.ops.ssd``: kernel K2 on a CUDA
-tensor, at ``pick_chunk``'s chunk cut to K2's limit
+``apply_mamba`` sends every multi-token scan (prefill, training, and a
+chunk that continues a state) through ``kernels.ops.ssd``: kernel K2 on
+a CUDA tensor, at ``pick_chunk``'s chunk cut to K2's limit
 (``ssd_scan.kernel_chunk``), and ``ssd_chunked`` below at
-``pick_chunk``'s chunk on a CPU tensor. The single-token decode
-step, the conv and the projections stay plain PyTorch, as the JAX
-package computes them outside any Pallas kernel too.
+``pick_chunk``'s chunk on a CPU tensor. Under a gradient the CUDA scan
+still runs K2 (``ssd_scan.SSDScanFn``), and its backward is the autograd
+of ``ssd_chunked`` recomputed in tensor ops; the train cells' chunk is
+``RunConfig(ssd_chunk=32)``. The single-token decode step, the conv and
+the projections stay plain PyTorch, as the JAX package computes them
+outside any Pallas kernel too.
 """
 from __future__ import annotations
 

@@ -9,12 +9,18 @@ segments of ``attn_every`` layers and applies ONE unstacked attention +
 MLP block, ``shared_block``, after every full segment; a shorter last
 segment gets none. The other families (moe, audio, vlm) raise
 ``NotImplementedError`` naming the slice that ports them.
+
+With ``RunConfig.remat`` each layer's block is checkpointed under a
+gradient (``_maybe_remat``), as the JAX package wraps its scan bodies;
+the hybrid's shared block is not, as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
@@ -153,6 +159,35 @@ def _apply_mamba_block(bp, h, cfg, rc, *, state=None, return_state=False):
     return h + y, new_state
 
 
+# what ``remat_policy="dots"`` saves: the outputs of the matmuls, as
+# ``jax.checkpoint_policies.checkpoint_dots`` saves those of dot_general
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _maybe_remat(fn, rc: RunConfig):
+    """``fn`` checkpointed as the JAX package's ``_maybe_remat`` does.
+
+    ``remat`` off: ``fn`` itself. ``remat_policy="dots"``: a selective
+    checkpoint that saves the matmul outputs (``_DOTS``) and recomputes
+    the rest. Any other policy: a plain checkpoint that recomputes all of
+    ``fn`` in the backward (``jax.checkpoint(fn)``). Without grad mode
+    ``fn`` runs as it is: there is no backward to recompute for.
+    """
+    if not rc.remat:
+        return fn
+    kw = {"use_reentrant": False}
+    if rc.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             list(_DOTS))
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, **kw)
+    return remat
+
+
 def _logits(params, h, cfg):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
@@ -191,10 +226,11 @@ def forward(params, cfg, rc: RunConfig, *, tokens: torch.Tensor,
         states = (ssm_lib.init_ssm_state(cfg, B, rc.compute_dtype, h.device,
                                          layers=cfg.n_layers)
                   if return_cache else None)
+        mamba_block = _maybe_remat(lambda bp, hh: _apply_mamba_block(
+            bp, hh, cfg, rc, return_state=return_cache), rc)
         for a, b, shared in _mamba_segments(cfg):
             for i in range(a, b):
-                h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
-                                           return_state=return_cache)
+                h, st = mamba_block(_layer(params["blocks"], i), h)
                 if return_cache:
                     for dst, src in zip(states, st):
                         dst[i].copy_(src)
@@ -209,9 +245,10 @@ def forward(params, cfg, rc: RunConfig, *, tokens: torch.Tensor,
             if cfg.family == "hybrid":
                 cache.update(k=torch.stack(ks), v=torch.stack(vs))
     else:
+        attn_block = _maybe_remat(lambda bp, hh: _apply_attn_block(
+            bp, hh, cfg, rc, positions, return_kv=return_cache), rc)
         for i in range(cfg.n_layers):
-            h, kv = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc,
-                                      positions, return_kv=return_cache)
+            h, kv = attn_block(_layer(params["blocks"], i), h)
             if return_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])

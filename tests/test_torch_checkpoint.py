@@ -16,6 +16,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.checkpoint.checkpointer import Checkpointer as JaxCheckpointer  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import RunConfig as JaxRunConfig, build as jax_build  # noqa: E402
 from repro.checkpoint.checkpointer import _flatten as jax_flatten  # noqa: E402
 from repro.optim.adamw import TrainState as JaxTrainState  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
@@ -24,16 +26,36 @@ from repro_torch.optim.adamw import TrainState, init_state  # noqa: E402
 from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map  # noqa: E402
 
 
-def _jax_state(seed=0):
-    """A JAX TrainState: f32 and bf16 params, nested blocks, step 7."""
+# the trees a round trip is made of, and leaves whose stored dtype each must keep
+TREES = {
+    "toy": {".params/blocks/attn/wq": "bfloat16", ".params/blocks/ln1": "float32"},
+    # the hybrid's tree: stacked Mamba2 blocks, one unstacked shared block,
+    # and the SSM leaves that stay f32 when the other params are bf16
+    "zamba2-1.2b": {".params/shared_block/attn/wq": "bfloat16",
+                    ".params/blocks/mamba/in_x": "bfloat16",
+                    ".params/blocks/mamba/A_log": "float32",
+                    ".params/blocks/mamba/dt_bias": "float32",
+                    ".params/blocks/mamba/D_skip": "float32",
+                    ".m/shared_block/attn/wq": "float32"},
+}
+
+
+def _jax_state(seed=0, tree="toy"):
+    """A JAX TrainState with random m and v and step 7: the toy tree (f32
+    and bf16 params, nested blocks), or the reduced zamba2-1.2b's params
+    in bf16 (made by the JAX package)."""
     rng = np.random.default_rng(seed)
-    params = {
-        "embed": jnp.asarray(rng.standard_normal((10, 4)), jnp.float32),
-        "final_norm": jnp.asarray(rng.standard_normal((4,)), jnp.float32),
-        "blocks": {"ln1": jnp.asarray(rng.standard_normal((2, 4)), jnp.float32),
-                   "attn": {"wq": jnp.asarray(rng.standard_normal((2, 4, 8)),
-                                              jnp.bfloat16)}},
-    }
+    if tree == "toy":
+        params = {
+            "embed": jnp.asarray(rng.standard_normal((10, 4)), jnp.float32),
+            "final_norm": jnp.asarray(rng.standard_normal((4,)), jnp.float32),
+            "blocks": {"ln1": jnp.asarray(rng.standard_normal((2, 4)), jnp.float32),
+                       "attn": {"wq": jnp.asarray(rng.standard_normal((2, 4, 8)),
+                                                  jnp.bfloat16)}},
+        }
+    else:
+        model = jax_build(jax_config(tree).reduced(), JaxRunConfig(param_dtype="bfloat16"))
+        params = model.init(jax.random.PRNGKey(seed))
     m = jax.tree.map(lambda p: jnp.asarray(rng.standard_normal(p.shape), jnp.float32), params)
     v = jax.tree.map(lambda p: jnp.asarray(rng.random(p.shape), jnp.float32), params)
     return JaxTrainState(params, m, v, jnp.int32(7))
@@ -62,29 +84,34 @@ def test_keys_are_jax_pytree_paths():
     assert ".params/blocks/ln1" in keys and ".m/embed" in keys and ".step" in keys
 
 
-def test_jax_writes_port_restores(tmp_path):
-    jstate = _jax_state(1)
+@pytest.mark.parametrize("tree", list(TREES))
+def test_jax_writes_port_restores(tmp_path, tree):
+    jstate = _jax_state(1, tree)
     JaxCheckpointer(tmp_path).save(jstate, 3, blocking=True)
-    target = state_from_jax(_as_numpy(_jax_state(2)), device="cpu")
+    target = state_from_jax(_as_numpy(_jax_state(2, tree)), device="cpu")
     restored = Checkpointer(tmp_path).restore(target)
     assert isinstance(restored, TrainState)
-    assert restored.params["blocks"]["attn"]["wq"].dtype == torch.bfloat16
+    flat = tree_flatten_with_path(restored)
+    for key, dtype in TREES[tree].items():
+        assert str(flat[key].dtype) == f"torch.{dtype}", key
     _assert_same(jstate, restored)
 
 
-def test_port_writes_jax_restores(tmp_path):
-    jstate = _jax_state(3)
+@pytest.mark.parametrize("tree", list(TREES))
+def test_port_writes_jax_restores(tmp_path, tree):
+    jstate = _jax_state(3, tree)
     ckpt = Checkpointer(tmp_path)
     ckpt.save(state_from_jax(_as_numpy(jstate), device="cpu"), 5)
     ckpt.wait()
     manifest = json.loads((tmp_path / "step_00000005" / "manifest.json").read_text())
     assert manifest["step"] == 5
-    assert manifest["leaves"][".params/blocks/attn/wq"]["dtype"] == "bfloat16"
+    for key, dtype in TREES[tree].items():
+        assert manifest["leaves"][key]["dtype"] == dtype, key
     assert manifest["leaves"][".step"] == {"file": manifest["leaves"][".step"]["file"],
                                            "shape": [], "dtype": "int32"}
     files = [manifest["leaves"][k]["file"] for k in sorted(manifest["leaves"])]
     assert files == [f"leaf_{i:05d}.npy" for i in range(len(files))]
-    restored = JaxCheckpointer(tmp_path).restore(_jax_state(4))
+    restored = JaxCheckpointer(tmp_path).restore(_jax_state(4, tree))
     for a, b in zip(jax.tree.leaves(restored), jax.tree.leaves(jstate)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32))

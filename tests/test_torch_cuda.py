@@ -18,7 +18,12 @@ through ``FlashAttentionFn`` (K1 forward, ``ref.attention_bwd``
 backward); its dq, dk, dv are held against autograd through the plain
 version (f32 1e-4, bf16 5e-2, as in ``chip_smoke.py``) and against
 ``attention_bwd`` on K1's own output (1e-6: the same function of the
-same tensors). A CUDA SSD scan under a gradient raises.
+same tensors). ``ops.ssd`` under a gradient goes through ``SSDScanFn``
+(K2 forward, the autograd of ``ssd_chunked`` as backward); its
+gradients are held against autograd through ``ssd_chunked`` (1e-6 of
+the largest value) and ``ref.ssd_ref`` (f32 2e-3, bf16 5e-2), and a
+reduced zamba2-1.2b train step on the card against the CPU's (1e-4),
+with remat off, "full" and "dots".
 
 Models: the reduced qwen2-0.5b, mamba2-2.7b, zamba2-1.2b (hybrid) and
 gemma-7b at head_dim 256 decode token by token to their forward's f32
@@ -41,6 +46,7 @@ from repro_torch.models.ssm import apply_mamba, init_mamba, ssd_chunked  # noqa:
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.runtime.train import (TrainRunConfig, build_train_step,  # noqa: E402
                                        init_sharded_state, value_and_grad)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -268,7 +274,7 @@ def test_reduced_mamba2_decode_matches_forward_on_card(card):
 
 
 # ---------------------------------------------------------------------------
-# training: K1 under a gradient, K2 refusing one, a reduced train step
+# training: K1 and K2 under a gradient, reduced train steps
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T,H,K,hd", [(2, 200, 200, 14, 2, 64), (2, 128, 128, 4, 4, 32),
@@ -307,15 +313,63 @@ def test_attention_without_grad_launches_k1_plainly(card):
     assert out.grad_fn is None and not out.requires_grad
 
 
+def _rel_err(got, expect):
+    """Largest abs error over the expected gradient's largest abs value."""
+    scale = float(expect.float().abs().max())
+    return float((got.float() - expect.float()).abs().max()) / (scale or 1.0)
+
+
 @pytest.mark.cuda
-def test_ssd_raises_under_grad_on_card(card):
-    x, dt, A, B, C, _ = _ssd_inputs(card, 1, 32, 2, 16, 16, torch.float32, torch.float32)
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 4, 64, 64, 32),       # zamba2-1.2b's (P, N) at the train chunk
+    (2, 64, 4, 64, 128, 32),      # mamba2-2.7b's
+    (2, 64, 4, 16, 16, 8),        # the reduced configs at the CPU tests' chunk
+    (1, 13, 2, 8, 16, 1),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_scan_fn_grads_match_plain(card, b, s, h, p, n, chunk, dtype, with_init):
+    """``ops.ssd`` under a gradient: K2 once in the forward, none in the
+    backward; each gradient in its input's dtype, equal to autograd through
+    ``ssd_chunked`` (the same function of the same tensors: 1e-6 of its
+    largest value) and within f32 2e-3 / bf16 5e-2 of autograd through
+    ``ref.ssd_ref``, the sequential recurrence."""
+    dt_ = TORCH_DTYPE[dtype]
+    x, dt, A, B, C, init = _ssd_inputs(card, b, s, h, p, n, dt_, dt_, with_init)
+    inputs = [t.requires_grad_(True) for t in (x, dt, A, B, C, init) if t is not None]
+    gen = torch.Generator(device=card).manual_seed(3)
+    dy = torch.randn(x.shape, generator=gen, device=card).to(dt_)
+    dfin = torch.randn((b, h, p, n), generator=gen, device=card)
     before = ops.ssd.launches
-    with pytest.raises(NotImplementedError, match="SSM-training"):
-        ops.ssd(x.requires_grad_(True), dt, A, B, C, chunk=16)
+    y, fin = ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init)
+    assert ops.ssd.launches == before + 1 and y.grad_fn is not None
+    for outs, douts in (((y,), (dy,)), ((y, fin), (dy, dfin))):
+        got = torch.autograd.grad(outs, inputs, douts, retain_graph=True)
+        assert ops.ssd.launches == before + 1                 # the backward launches no K2
+        y_c, fin_c = ssd_chunked(x, dt, A, B, C, chunk, init_state=init)
+        chunked = torch.autograd.grad((y_c, fin_c)[:len(outs)], inputs, douts)
+        y_r, fin_r = ref.ssd_ref(x, dt, A, B, C, init_state=init)
+        plain = torch.autograd.grad((y_r, fin_r)[:len(outs)], inputs, douts)
+        torch.cuda.synchronize()
+        for g, c, r, t in zip(got, chunked, plain, inputs):
+            assert g.dtype == t.dtype and g.shape == t.shape
+            assert float(g.float().abs().sum()) > 0
+            assert _rel_err(g, c) <= 1e-6
+            assert _rel_err(g, r) <= (2e-3 if dtype == "float32" else 5e-2)
+
+
+@pytest.mark.cuda
+def test_ssd_without_grad_records_no_graph(card):
+    x, dt, A, B, C, _ = _ssd_inputs(card, 1, 32, 2, 16, 16, torch.float32, torch.float32)
+    x.requires_grad_(True)
+    before = ops.ssd.launches
     with torch.no_grad():
-        ops.ssd(x, dt, A, B, C, chunk=16)
-    assert ops.ssd.launches == before + 1
+        y, fin = ops.ssd(x, dt, A, B, C, chunk=16)
+    with torch.inference_mode():
+        y2, _ = ops.ssd(x.detach(), dt, A, B, C, chunk=16)
+    assert ops.ssd.launches == before + 2
+    assert y.grad_fn is None and not y.requires_grad and fin.grad_fn is None
+    assert torch.equal(y, y2)
 
 
 @pytest.mark.cuda
@@ -344,6 +398,41 @@ def test_reduced_qwen2_trains_on_card(card, compute):
     assert float(m2["loss"]) < float(m1["loss"])
     assert int(state.step) == 2
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["off", "full", "dots"])
+def test_reduced_zamba2_train_step_on_card_matches_cpu(card, remat):
+    """One f32 step of the reduced hybrid (4 Mamba2 layers, the shared block
+    after layers 2 and 4) at chunk 8, from one state and one batch, on the
+    card and on the CPU: loss, grad norm rel 1e-4, params, m and v 1e-4.
+    Launches a step: K1 2 (the shared block is never rematted), K2 4, or 8
+    under remat (the forward and the backward's recompute)."""
+    cfg = get_config("zamba2-1.2b").reduced()
+    flags = {"off": {}, "full": dict(remat=True, remat_policy="full"),
+             "dots": dict(remat=True, remat_policy="dots")}[remat]
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device="cpu",
+                   ssd_chunk=8, **flags)
+    trc = TrainRunConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    step_cpu, *_, model = build_train_step(cfg, None, B=2, S=32, rc=rc, trc=trc)
+    step_card, *_ = build_train_step(cfg, None, B=2, S=32, rc=rc.replace(device="cuda"),
+                                     trc=trc)
+    state = init_sharded_state(model, None, None, seed=0)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    new_cpu, met_cpu = step_cpu(state, batch)
+    on_card = tree_map(lambda t: t.to(card), state)
+    before = {"attention": ops.attention.launches, "ssd": ops.ssd.launches}
+    new_card, met_card = step_card(on_card, {k: v.to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    n_ssd = cfg.n_layers * (1 if remat == "off" else 2)
+    assert {"attention": ops.attention.launches - before["attention"],
+            "ssd": ops.ssd.launches - before["ssd"]} == {"attention": 2, "ssd": n_ssd}
+    for key in ("loss", "grad_norm", "lr"):
+        assert float(met_card[key]) == pytest.approx(float(met_cpu[key]), rel=1e-4), key
+    for a, b in zip(tree_leaves(new_card), tree_leaves(new_cpu)):
+        torch.testing.assert_close(a.cpu().float(), b.float(), atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

@@ -36,7 +36,8 @@ def _close(j, t, tol):
 # ---------------------------------------------------------------------------
 # configs: the port keeps its own copy; it must equal the reference
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b",
+                                  "qwen2-1.5b", "deepseek-67b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_copy_matches_reference(reduced, arch):
     a, b = jcfg.get_config(arch), tcfg.get_config(arch)
@@ -50,7 +51,8 @@ def test_config_copy_matches_reference(reduced, arch):
 def test_shapes_and_registry():
     assert {k: dataclasses.asdict(v) for k, v in jcfg.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in tcfg.SHAPES.items()}
-    assert tcfg.list_configs() == ["gemma-7b", "mamba2-2.7b", "qwen2-0.5b", "zamba2-1.2b"]
+    assert tcfg.list_configs() == ["deepseek-67b", "gemma-7b", "mamba2-2.7b", "qwen2-0.5b",
+                                   "qwen2-1.5b", "zamba2-1.2b"]
     cfg = tcfg.get_config("qwen2-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_padded) == \
@@ -69,8 +71,16 @@ def test_shapes_and_registry():
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
             cfg.d_ff, cfg.vocab_padded, cfg.gelu_mlp, cfg.scale_embeddings,
             cfg.tie_embeddings) == (28, 3072, 16, 16, 256, 24576, 256000, True, True, True)
+    cfg = tcfg.get_config("qwen2-1.5b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.d_ff, cfg.vocab_padded, cfg.qkv_bias, cfg.tie_embeddings) == \
+        (28, 1536, 12, 2, 128, 8960, 152064, True, True)
+    cfg = tcfg.get_config("deepseek-67b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.d_ff, cfg.vocab_padded, cfg.tie_embeddings) == \
+        (95, 8192, 64, 8, 128, 22016, 102400, False)
     with pytest.raises(KeyError):
-        tcfg.get_config("deepseek-67b")
+        tcfg.get_config("qwen2-moe-a2.7b")
 
 
 def _leaves(tree, prefix=""):

@@ -295,6 +295,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "         'repro_torch.runtime.train', 'repro_torch.data.pipeline',\n"
         "         'repro_torch.checkpoint.checkpointer', 'repro_torch.tree',\n"
         "         'repro_torch.configs.zamba2_1p2b', 'repro_torch.configs.gemma_7b',\n"
+        "         'repro_torch.configs.qwen2_1p5b', 'repro_torch.configs.deepseek_67b',\n"
         "         'repro_torch.configs.workflows', 'repro_torch.examples',\n"
         "         'repro_torch.examples.serve_batch', 'repro_torch.examples.workflow_train',\n"
         "         'repro_torch.core', 'repro_torch.core.policy'}\n"

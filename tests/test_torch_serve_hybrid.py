@@ -401,6 +401,7 @@ def test_chip_smoke_expected_launches(chip_smoke):
     expect = {name: chip_smoke.expected_launches(get_config(name))
               for name in chip_smoke.SERVE_ARCHS}
     assert expect == {"qwen2-0.5b": {"attention": 24, "ssd": 0},
+                      "qwen2-1.5b": {"attention": 28, "ssd": 0},
                       "mamba2-2.7b": {"attention": 0, "ssd": 64},
                       "zamba2-1.2b": {"attention": 6, "ssd": 38},
                       "gemma-7b": {"attention": 28, "ssd": 0}}
