@@ -12,10 +12,15 @@ Phases; any failure exits non-zero and prints no result line:
    prefill shape of each served model with attention (B=8, S=512):
    qwen2-0.5b (H=14 query heads over K=2 KV heads, hd=64; causal and
    not, bf16 and f32), qwen2-1.5b (H=12 over K=2, hd=128),
-   zamba2-1.2b's shared block (H=K=32, hd=64) and
-   gemma-7b (H=K=16, hd=256; causal and not, bf16 and f32); at K = H
+   zamba2-1.2b's shared block (H=K=32, hd=64),
+   gemma-7b (H=K=16, hd=256; causal and not, bf16 and f32),
+   qwen2-moe-a2.7b (H=K=16, hd=128), musicgen-medium (H=K=24, hd=64)
+   and llama-3.2-vision-11b (H=32 over K=8, hd=128), and the vlm's
+   cross-attention (not causal over T=1601 image keys, at S=512 in the
+   prefill and S=1 in each decode step); at K = H
    and K = 1, at a ragged S and T (also at hd 256 with GQA) and at
-   head_dim 32 and 128. Each of the four prefill shapes is timed with
+   head_dim 32 and 128. Each of the seven prefill shapes and the two
+   cross shapes is timed with
    CUDA events beside the plain version, PyTorch's
    ``scaled_dot_product_attention`` on the full-H (``repeat_kv``) k/v
    (a yardstick only; the port never calls it) and the bound. K2 (the
@@ -31,19 +36,29 @@ Phases; any failure exits non-zero and prints no result line:
    call computes it).
 3. Serve: full-width qwen2-0.5b, qwen2-1.5b, mamba2-2.7b, zamba2-1.2b (hybrid: 38
    Mamba2 layers and one shared attention block applied after every
-   6th) and gemma-7b (head_dim 256), each at full depth, in bf16 with
+   6th), gemma-7b (head_dim 256), qwen2-moe-a2.7b (60 routed experts
+   top-4, padded to 64, and 4 shared), musicgen-medium (frame
+   embeddings in place of tokens) and llama-3.2-vision-11b (a gated
+   cross-attention block over 1601 image tokens after every 5th layer,
+   its gates set to ``CROSS_GATE``), each at full depth, in bf16 with
    seeded random weights, built through ``runtime.serve``, each
-   answering 8 requests of 512-token prompts: one prefill, then greedy
+   answering 8 requests of 512-token prompts (``make_request``: tokens;
+   for audio seeded frames, one more per decode step; for vision tokens
+   and seeded image embeddings): one prefill, then greedy
    decode steps (64 each). The counts are set to 0 before each model's
-   timed request; its prefill and its whole request must launch K1 and
-   K2 exactly ``expected_launches(cfg)`` times: K1 once per attention
-   layer or shared-block application, K2 once per Mamba2 layer, and
-   neither in decode.
+   timed request; its prefill must launch K1 and K2 exactly
+   ``expected_launches(cfg)`` times (K1 once per attention layer, cross
+   block or shared-block application, K2 once per Mamba2 layer) and
+   each decode step ``expected_decode_launches(cfg)`` (K1 once per
+   cross block, else neither).
 4. Consistency in f32 with TF32 off, for each model at full width (and
-   full depth, but gemma-7b cut to 4 layers: its f32 params alone are
-   34 GB): prefill logits with the kernels against the same prefill
-   with their plain versions, and prefill(tokens[:k]) +
-   decode(tokens[k:]) against forward(tokens).
+   full depth, but gemma-7b and qwen2-moe-a2.7b cut to 4 layers and
+   llama-3.2-vision-11b to 10, two cross blocks: their f32 params alone
+   are 34.2, 60.6 and 40.4 GB): prefill logits with the kernels against
+   the same prefill with their plain versions (for the MoE on the
+   requests routed alike in both, the count of differing top-k choices
+   printed), and prefill(inputs[:k]) + decode(inputs[k:]) against
+   forward(inputs) (the MoE at capacity factor 16, drop-free).
 5. Train: K1 under a gradient (``FlashAttentionFn``: K1 forward,
    tensor-op backward) at the training shape (B=8, S=512, H=14 over K=2
    and K=H, hd=64; causal and not; f32 and bf16), dq, dk and dv against
@@ -114,7 +129,9 @@ Phases; any failure exits non-zero and prints no result line:
    memory is printed.
 8. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the served models' prefills, ``launches_by_arch`` per model,
-   ``at`` its numbers at each model's prefill shape, and K2's at its
+   ``decode_launches_per_step_by_arch`` where a decode step launches it,
+   ``at`` its numbers at each model's prefill shape (K1's also at the
+   vlm's cross shapes), and K2's at its
    train shapes; ``train_launches_per_step_by_arch`` per trained model;
    K1's also per workflow pod), the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
@@ -142,14 +159,24 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 ARCH = "qwen2-0.5b"               # the trained model, and K1's first timed shape
 SSM_ARCH = "mamba2-2.7b"          # K2's first timed shape
-SERVE_ARCHS = ("qwen2-0.5b", "qwen2-1.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b")
-CONSISTENCY_LAYERS = {"gemma-7b": 4}   # depth cut of phase 4 (full widths)
+SERVE_ARCHS = ("qwen2-0.5b", "qwen2-1.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b",
+               "qwen2-moe-a2.7b", "musicgen-medium", "llama-3.2-vision-11b")
+# depth cuts of phase 4 (full widths): the f32 params at full depth are too
+# large (gemma-7b 34 GB, qwen2-moe-a2.7b 60.6 GB); the vlm keeps two cross blocks
+CONSISTENCY_LAYERS = {"gemma-7b": 4, "qwen2-moe-a2.7b": 4, "llama-3.2-vision-11b": 10}
 # the bf16 causal prefill shape each model hands a kernel: K1 (B, S, T, H, K, hd),
 # K2 (b, s, h, p, n, chunk)
 K1_SHAPES = {"qwen2-0.5b": (8, 512, 512, 14, 2, 64),
              "qwen2-1.5b": (8, 512, 512, 12, 2, 128),
              "zamba2-1.2b": (8, 512, 512, 32, 32, 64),
-             "gemma-7b": (8, 512, 512, 16, 16, 256)}
+             "gemma-7b": (8, 512, 512, 16, 16, 256),
+             "qwen2-moe-a2.7b": (8, 512, 512, 16, 16, 128),
+             "musicgen-medium": (8, 512, 512, 24, 24, 64),
+             "llama-3.2-vision-11b": (8, 512, 512, 32, 8, 128)}
+# the vlm's cross-attention, not causal over its n_img_tokens = 1601 image
+# keys: in the prefill (S = 512) and in each decode step (S = 1)
+K1_CROSS_SHAPES = {"llama-3.2-vision-11b cross, prefill": (8, 512, 1601, 32, 8, 128),
+                   "llama-3.2-vision-11b cross, decode": (8, 1, 1601, 32, 8, 128)}
 K2_SHAPES = {"mamba2-2.7b": (8, 512, 80, 64, 128, 128),
              "zamba2-1.2b": (8, 512, 64, 64, 64, 128)}
 SERVE_BATCH, PROMPT_LEN, DECODE_STEPS = 8, 512, 64
@@ -158,6 +185,11 @@ K2_REF_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # K2 vs ssd_ref (the JAX kern
 K2_CHUNKED_TOL = 2e-4             # f32 K2 vs ssd_chunked (the JAX production-path test's)
 PREFILL_PLAIN_TOL = 1e-3          # f32 prefill logits, kernels vs their plain versions
 DECODE_TOL = 2e-3                 # f32 prefill + decode vs forward
+# "decode equals forward" holds for a MoE only without capacity drops, which
+# depend on the batch: the check runs at the reference test's capacity factor
+# (tests/test_serving.py), where no expert of any group can overflow
+DECODE_MOE_CAPACITY = 16.0
+CROSS_GATE = 1.0                  # the vlm's cross-block gates: tanh(0) = 0 would hide them
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, RESUME_AFTER = 8, 512, 8, 4
 K1_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # FlashAttentionFn vs plain autograd
 TRAIN_PLAIN_TOL = 1e-4            # f32 step, kernels vs plain: loss, grad norm, grads (rel), params
@@ -255,7 +287,8 @@ def _sdpa_ms(q, k, v, causal) -> float:
 
 def check_k1(gen) -> dict:
     """Hold K1 against its plain version on the card; time each model's
-    prefill shape (``K1_SHAPES``)."""
+    prefill shape (``K1_SHAPES``, causal) and the vlm's cross-attention
+    shapes (``K1_CROSS_SHAPES``, not causal)."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -274,6 +307,16 @@ def check_k1(gen) -> dict:
         (8, 512, 512, 16, 16, 256, bf16, False),
         (8, 512, 512, 16, 16, 256, f32, True),
         (8, 512, 512, 16, 16, 256, f32, False),
+        (8, 512, 512, 16, 16, 128, bf16, True),    # qwen2-moe-a2.7b's prefill
+        (8, 512, 512, 16, 16, 128, f32, True),
+        (8, 512, 512, 24, 24, 64, bf16, True),     # musicgen-medium's prefill, H = 24
+        (8, 512, 512, 24, 24, 64, f32, True),
+        (8, 512, 512, 32, 8, 128, bf16, True),     # llama-3.2-vision-11b's self-attention
+        (8, 512, 512, 32, 8, 128, f32, True),
+        (8, 512, 1601, 32, 8, 128, bf16, False),   # its cross-attention: ragged T = 1601
+        (8, 512, 1601, 32, 8, 128, f32, False),
+        (8, 1, 1601, 32, 8, 128, bf16, False),     # ... and in each decode step, S = 1
+        (8, 1, 1601, 32, 8, 128, f32, False),
         (2, 200, 333, 8, 2, 256, bf16, True),      # hd 256, ragged S != T, GQA
         (2, 200, 333, 8, 2, 256, bf16, False),
         (2, 200, 333, 8, 2, 256, f32, False),
@@ -286,6 +329,8 @@ def check_k1(gen) -> dict:
         (2, 256, 256, 8, 2, 128, bf16, True),
         (2, 256, 256, 8, 1, 128, f32, False),
     ]
+    targets = {**{label: (shape, True) for label, shape in K1_SHAPES.items()},
+               **{label: (shape, False) for label, shape in K1_CROSS_SHAPES.items()}}
     timed = {}
     for B, S, T, H, K, hd, dtype, causal in cases:
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
@@ -304,21 +349,25 @@ def check_k1(gen) -> dict:
               f"causal={causal}: max_abs_err={err:.3e} (tol {tol:g}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         _check(ok, f"K1 disagrees with its plain version: max_abs_err={err}")
-        for arch, shape in K1_SHAPES.items():
-            if (B, S, T, H, K, hd) == shape and dtype == bf16 and causal and arch not in timed:
-                timed[arch] = (q, k, v, err)
-    _check(sorted(timed) == sorted(K1_SHAPES), f"K1 timed shapes {sorted(timed)}")
+        for label, (shape, want_causal) in targets.items():
+            if ((B, S, T, H, K, hd) == shape and dtype == bf16 and causal == want_causal
+                    and label not in timed):
+                timed[label] = (q, k, v, err)
+    _check(sorted(timed) == sorted(targets), f"K1 timed shapes {sorted(timed)}")
 
     at = {}
-    for arch, (q, k, v, err) in timed.items():
-        ms = time_ms(lambda: ops.attention(q, k, v, causal=True))
-        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=True), iters=20)
-        library_ms = _sdpa_ms(q, k, v, True)
-        bound_ms, bound_by = attention_bound(*K1_SHAPES[arch], torch.bfloat16, True)
-        at[arch] = {"shape": "B,S,T,H,K,hd=" + ",".join(map(str, K1_SHAPES[arch])),
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-        print(f"  K1 at {arch}'s prefill shape ({at[arch]['shape']}, bf16, causal): "
+    for label, (q, k, v, err) in timed.items():
+        shape, causal = targets[label]
+        ms = time_ms(lambda: ops.attention(q, k, v, causal=causal))
+        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal), iters=20)
+        library_ms = _sdpa_ms(q, k, v, causal)
+        bound_ms, bound_by = attention_bound(*shape, torch.bfloat16, causal)
+        at[label] = {"shape": "B,S,T,H,K,hd=" + ",".join(map(str, shape)), "causal": causal,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        where = (f"{label}'s prefill shape" if label in K1_SHAPES
+                 else f"{label.replace(', ', ' (')}) shape")
+        print(f"  K1 at {where} ({at[label]['shape']}, bf16, causal={causal}): "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
               f"({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}), "
               f"{bound_ms / ms:.1%} of the bound", flush=True)
@@ -486,9 +535,12 @@ def check_k2(gen) -> dict:
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
-def greedy_decode(decode, params, logits, cache, steps: int):
+def greedy_decode(decode, params, logits, cache, steps: int, frames=None):
     """Greedy tokens after a prefill: the prefill's own, then one per step.
 
+    Each step feeds the last greedy token, or for the audio family (whose
+    frontend is a stub, so a generated token cannot be fed back) the
+    step's frame embedding ``frames[:, t:t + 1]`` (B, 1, D).
     Returns (tokens (B, 1 + steps), last logits, cache).
     """
     import torch
@@ -496,8 +548,9 @@ def greedy_decode(decode, params, logits, cache, steps: int):
     cache = grow_cache(cache, steps)
     tok = logits[:, -1:].argmax(dim=-1)
     out = [tok]
-    for _ in range(steps):
-        logits, cache = decode(params, cache, {"tokens": tok})
+    for t in range(steps):
+        step = {"tokens": tok} if frames is None else {"embeds": frames[:, t:t + 1]}
+        logits, cache = decode(params, cache, step)
         tok = logits.argmax(dim=-1)
         out.append(tok)
     return torch.cat(out, dim=1), logits, cache
@@ -515,24 +568,69 @@ def make_prompts(cfg, batch, length, device):
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, length))).to(device)
 
 
+def make_request(cfg, batch, length, device, steps: int = 0):
+    """(the prefill batch, the decode steps' frames or None) of ``batch``
+    requests of ``length`` positions, by frontend.
+
+    Tokens are ``make_prompts``'. Audio: frame embeddings for the prompt
+    and one frame for each of ``steps`` decode steps; vision: tokens and
+    the image's patch embeddings (B, n_img_tokens, D). Embeddings are
+    N(0, 1) in f32 (the model casts them to its compute dtype), from a
+    generator on ``device`` seeded with SEED.
+    """
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if cfg.frontend == "audio":
+        emb = torch.randn((batch, length + steps, cfg.d_model), generator=gen, device=device)
+        return {"embeds": emb[:, :length].contiguous()}, emb[:, length:].contiguous()
+    req = {"tokens": make_prompts(cfg, batch, length, device)}
+    if cfg.frontend == "vision":
+        req["img_embeds"] = torch.randn((batch, cfg.n_img_tokens, cfg.d_model),
+                                        generator=gen, device=device)
+    return req, None
+
+
+def init_params(model):
+    """Seeded random params of ``model``; a vlm's cross-block gates set to
+    ``CROSS_GATE``. They are initialised to 0, and tanh(0) = 0 would
+    multiply the cross-attention, K1 included, away: a wrong cross path
+    would then pass every check."""
+    import torch
+    params = model.init(torch.Generator(device=model.rc.device).manual_seed(SEED))
+    if "cross_blocks" in params:
+        params["cross_blocks"]["gate"].fill_(CROSS_GATE)
+    return params
+
+
 def _launches() -> dict:
     from repro_torch.kernels import ops
     return {"attention": ops.attention.launches, "ssd": ops.ssd.launches}
 
 
 def expected_launches(cfg) -> dict:
-    """K1 and K2 launches of one prefill of ``cfg`` (and of a whole request:
-    decode runs neither kernel). K1 runs once per attention layer (dense)
-    or per application of the hybrid's shared block, one after every full
-    segment of ``attn_every`` Mamba2 layers (zamba2-1.2b: 38 // 6 = 6);
-    K2 once per Mamba2 layer."""
-    if cfg.family == "dense":
+    """K1 and K2 launches of one prefill of ``cfg``. K1 runs once per
+    attention layer (dense, moe, audio, vlm), per cross block of a vlm
+    (one after every full segment of ``cross_attn_every`` layers:
+    llama-3.2-vision-11b 40 + 8) or per application of the hybrid's
+    shared block, one after every full segment of ``attn_every`` Mamba2
+    layers (zamba2-1.2b: 38 // 6 = 6); K2 once per Mamba2 layer."""
+    if cfg.family in ("dense", "moe", "audio"):
         return {"attention": cfg.n_layers, "ssd": 0}
+    if cfg.family == "vlm":
+        return {"attention": cfg.n_layers + cfg.n_layers // cfg.cross_attn_every, "ssd": 0}
     if cfg.family == "ssm":
         return {"attention": 0, "ssd": cfg.n_layers}
     if cfg.family == "hybrid":
         return {"attention": cfg.n_layers // cfg.attn_every, "ssd": cfg.n_layers}
     raise ValueError(f"no served path for family {cfg.family!r}")
+
+
+def expected_decode_launches(cfg) -> dict:
+    """K1 and K2 launches of one decode step: the vlm's cross blocks run K1
+    over the cached image keys (8 a step for llama-3.2-vision-11b); self-
+    attention decode and the Mamba2 decode step run neither kernel."""
+    cross = cfg.n_layers // cfg.cross_attn_every if cfg.family == "vlm" else 0
+    return {"attention": cross, "ssd": 0}
 
 
 def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -> dict:
@@ -552,23 +650,23 @@ def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -
     prefill, *_, model = build_prefill_step(cfg, None, B=batch, S=prompt_len, rc=rc)
     decode, *_ = build_decode_step(
         cfg, ShapeConfig("serve", "decode", prompt_len + decode_steps, batch), None, rc=rc)
-    params = model.init(torch.Generator(device=device).manual_seed(SEED))
-    prompts = make_prompts(cfg, batch, prompt_len, device)
+    params = init_params(model)
+    request, frames = make_request(cfg, batch, prompt_len, device, steps=decode_steps)
 
     # warm-up at the timed shapes (GEMM plans, allocator pools), not timed
-    warm_logits, warm_cache = prefill(params, {"tokens": prompts})
-    greedy_decode(decode, params, warm_logits, warm_cache, 2)
+    warm_logits, warm_cache = prefill(params, request)
+    greedy_decode(decode, params, warm_logits, warm_cache, 2, frames)
     del warm_logits, warm_cache
     _sync(device)
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ops.attention.launches = ops.ssd.launches = 0
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, request)
     _sync(device)
     t1 = time.perf_counter()
     prefill_launches = _launches()
-    gen, logits, cache = greedy_decode(decode, params, logits, cache, decode_steps)
+    gen, logits, cache = greedy_decode(decode, params, logits, cache, decode_steps, frames)
     _sync(device)
     t2 = time.perf_counter()
     launches = _launches()
@@ -606,36 +704,99 @@ def plain_kernels():
         ops.attention, ops.ssd = kernels
 
 
+@contextlib.contextmanager
+def record_routing(log: list):
+    """Append each MoE layer's routing to ``log``, in call order: a bool
+    (tokens, Ep) tensor, True where the token chose the expert in its
+    top-k (first row block) or was kept in its capacity (second block),
+    stacked as (2, tokens, Ep). For a comparison only."""
+    import torch
+    from repro_torch.models import moe
+    top_k, route = moe.top_k, moe.route
+    chosen = []
+
+    def recording_top_k(probs, k):
+        vals, idx = top_k(probs, k)
+        chosen.append(torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, idx, True))
+        return vals, idx
+
+    def recording_route(logits, cfg, group):
+        dispatch, combine, aux = route(logits, cfg, group)
+        Ep = logits.shape[-1]
+        kept = dispatch.float().sum(-1) > 0
+        log.append(torch.stack([chosen.pop().reshape(-1, Ep), kept.reshape(-1, Ep)]))
+        return dispatch, combine, aux
+    moe.top_k, moe.route = recording_top_k, recording_route
+    try:
+        yield
+    finally:
+        moe.top_k, moe.route = top_k, route
+
+
+def _inputs_prefix(request, split: int) -> dict:
+    """The prefill batch of the first ``split`` positions (the image stays whole)."""
+    return {k: v if k == "img_embeds" else v[:, :split] for k, v in request.items()}
+
+
 def consistency(cfg, *, device: str, prefill_batch: int, prefill_len: int,
                 batch: int, seq_len: int, split: int) -> dict:
     """f32 errors: prefill logits with the kernels vs their plain versions;
-    prefill + decode vs forward."""
+    prefill + decode vs forward.
+
+    A MoE's routing is recorded in both prefills: K1 and its plain
+    version differ by about 1e-6 in f32, enough to flip a near-tied
+    top-k choice (or, through the capacity queue, another token's drop),
+    which moves that request's logits by far more than the bound. The
+    error is held on the requests none of whose tokens was routed
+    differently in any layer, and the count of differing choices is
+    returned. The decode check runs a MoE at ``DECODE_MOE_CAPACITY``.
+    """
     import torch
     from repro_torch.models import RunConfig, build
     from repro_torch.runtime.serve import grow_cache
 
     rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device=device)
     model = build(cfg, rc)
-    params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    params = init_params(model)
 
-    tokens = make_prompts(cfg, prefill_batch, prefill_len, device)
-    logits, _ = model.prefill(params, {"tokens": tokens})
-    with plain_kernels():
-        logits_plain, _ = model.prefill(params, {"tokens": tokens})
-    err_plain = float((logits - logits_plain).abs().max())
-    del logits, logits_plain
+    request, _ = make_request(cfg, prefill_batch, prefill_len, device)
+    runs = []
+    for plain in (False, True):
+        log = []
+        with record_routing(log), (plain_kernels() if plain else contextlib.nullcontext()):
+            logits, _ = model.prefill(params, request)
+        runs.append((logits, log))
+    (logits, log_k), (logits_plain, log_p) = runs
+    rows = torch.ones(prefill_batch, dtype=torch.bool, device=logits.device)
+    flips = 0
+    for a, b in zip(log_k, log_p):                     # one (2, tokens, Ep) per MoE layer
+        differ = (a != b).any(dim=-1)                   # (2, tokens)
+        flips += int(differ[0].sum())
+        rows &= ~differ.any(dim=0).reshape(prefill_batch, prefill_len).any(dim=1)
+    _check(bool(rows.any()), "every request was routed differently with the plain kernels")
+    err_plain = float((logits - logits_plain)[rows].abs().max())
+    del logits, logits_plain, runs
 
-    tokens = make_prompts(cfg, batch, seq_len, device)
-    full, _, _ = model.apply(params, {"tokens": tokens})
-    _, cache = model.prefill(params, {"tokens": tokens[:, :split]})
+    dcfg = (dataclasses.replace(cfg, capacity_factor=DECODE_MOE_CAPACITY) if cfg.n_experts
+            else cfg)
+    dmodel = build(dcfg, rc)
+    request, _ = make_request(cfg, batch, seq_len, device)
+    full, _, _ = dmodel.apply(params, request)
+    _, cache = dmodel.prefill(params, _inputs_prefix(request, split))
     cache = grow_cache(cache, seq_len - split)
     outs = []
     for t in range(split, seq_len):
-        step_logits, cache = model.decode(params, cache, {"tokens": tokens[:, t:t + 1]})
+        step = ({"embeds": request["embeds"][:, t:t + 1]} if cfg.frontend == "audio"
+                else {"tokens": request["tokens"][:, t:t + 1]})
+        step_logits, cache = dmodel.decode(params, cache, step)
         outs.append(step_logits)
     err_decode = float((torch.cat(outs, dim=1) - full[:, split:]).abs().max())
     _check(bool(torch.isfinite(full).all()), "non-finite forward logits")
-    return {"prefill_kernels_vs_plain": err_plain, "prefill_decode_vs_forward": err_decode}
+    out = {"prefill_kernels_vs_plain": err_plain, "prefill_decode_vs_forward": err_decode}
+    if cfg.n_experts:
+        out.update(routing_flips=flips, moe_layers=len(log_k),
+                   requests_held=int(rows.sum()), requests=prefill_batch)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -827,6 +988,17 @@ def remat_agreement(cfg, *, device: str, batch: int, seq_len: int) -> dict:
                    "launches": run["launches"],
                    "max_memory_allocated": run["max_memory_allocated"]}
             for name, run in runs.items()}
+
+
+def _tree_bytes(cfg, dtype) -> int:
+    """Bytes of ``cfg``'s params tree in ``dtype`` (its f32 leaves stay f32),
+    from the meta tree."""
+    import torch
+    from repro_torch.models import RunConfig, build
+    from repro_torch.tree import tree_leaves
+    rc = RunConfig(param_dtype=dtype, compute_dtype=dtype, device="meta")
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(build(cfg, rc).init_eval_shape()))
 
 
 def _max_abs_diff(a, b) -> float:
@@ -1145,7 +1317,7 @@ def main() -> int:
 
     # 3 and 4, for each model: serve at full width and depth in bf16, then f32
     # consistency
-    served, serve_ms = {}, {}
+    served, decode_served, serve_ms = {}, {}, {}
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
         res = serve(cfg, device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
@@ -1157,12 +1329,15 @@ def main() -> int:
               f"max_memory_allocated {res['max_memory_allocated']} B; launches: "
               f"prefill {res['prefill_launches']}, request {res['request_launches']}",
               flush=True)
-        expect = expected_launches(cfg)
+        expect, per_step = expected_launches(cfg), expected_decode_launches(cfg)
+        expect_request = {k: n + DECODE_STEPS * per_step[k] for k, n in expect.items()}
         _check(res["prefill_launches"] == expect,
                f"{arch} prefill launched {res['prefill_launches']}, not {expect}")
-        _check(res["request_launches"] == expect,
-               f"{arch} request launched {res['request_launches']}, not {expect}")
+        _check(res["request_launches"] == expect_request,
+               f"{arch} request launched {res['request_launches']}, not {expect_request} "
+               f"(prefill {expect} + {DECODE_STEPS} steps x {per_step})")
         served[arch] = res["prefill_launches"]
+        decode_served[arch] = per_step
         serve_ms[arch] = (res["prefill_ms"], res["decode_ms_per_step"])
         del res
         torch.cuda.empty_cache()             # the bf16 model is gone before [4]
@@ -1170,12 +1345,19 @@ def main() -> int:
 
         layers = CONSISTENCY_LAYERS.get(arch, cfg.n_layers)
         cut = (f" cut to {layers} layers (full widths; its f32 params at full depth "
-               f"alone are {cfg.param_count() * 4 / 1e9:.1f} GB)"
+               f"alone are {_tree_bytes(cfg, torch.float32) / 1e9:.1f} GB)"
                if layers != cfg.n_layers else "")
         errs = consistency(dataclasses.replace(cfg, n_layers=layers), device="cuda",
                            prefill_batch=SERVE_BATCH, prefill_len=PROMPT_LEN, batch=2,
                            seq_len=96, split=32)
         print(f"[4] {arch}{cut}: f32 consistency: {json.dumps(errs)}", flush=True)
+        if cfg.n_experts:
+            print(f"[4] {arch}: {errs['routing_flips']} top-k choices of "
+                  f"{SERVE_BATCH * PROMPT_LEN} tokens x {errs['moe_layers']} layers differ "
+                  f"between the kernels and their plain versions; the prefill bound is held "
+                  f"on the {errs['requests_held']} of {errs['requests']} requests routed alike "
+                  f"throughout; decode vs forward at capacity_factor {DECODE_MOE_CAPACITY:g} "
+                  f"(drop-free: capacity drops depend on the batch)", flush=True)
         _check(errs["prefill_kernels_vs_plain"] <= PREFILL_PLAIN_TOL,
                f"{arch} prefill kernels vs plain {errs['prefill_kernels_vs_plain']} "
                f"> {PREFILL_PLAIN_TOL}")
@@ -1379,6 +1561,8 @@ def main() -> int:
     for entry, kernel in ((k1, "attention"), (k2, "ssd")):
         entry["launches_by_arch"] = {arch: n[kernel] for arch, n in served.items()}
         entry["launches"] = sum(entry["launches_by_arch"].values())
+        entry["decode_launches_per_step_by_arch"] = {
+            arch: n[kernel] for arch, n in decode_served.items() if n[kernel]}
     k1["train_launches_per_step"] = res["launches_per_step"][0]["attention"]
     train_launches[ARCH] = res["launches_per_step"][0]
     for entry, kernel in ((k1, "attention"), (k2, "ssd")):

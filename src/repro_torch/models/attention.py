@@ -11,9 +11,12 @@ call takes the place of both of the JAX package's branches
 (``full_attention`` up to ``attn_dense_max``, ``chunked_attention``
 beyond), which compute the same function.
 ``full_attention`` and ``chunked_attention`` are kept as the ports of
-those two jnp paths. Decode keeps the (K, G) folded form against the
-K-head cache and stays plain PyTorch: the JAX package computes it
-outside any Pallas kernel too.
+those two jnp paths. Self-attention decode keeps the (K, G) folded form
+against the K-head cache and stays plain PyTorch: the JAX package
+computes it outside any Pallas kernel too. Cross-attention (the VLM's
+gated blocks over the image tokens) goes through ``ops.attention``
+non-causal in prefill and in decode, where one query attends to the N
+cached image keys.
 """
 from __future__ import annotations
 
@@ -143,39 +146,51 @@ def apply_attention(
     x: torch.Tensor,
     cfg,
     rc: RunConfig,
-    positions: torch.Tensor,
+    positions: Optional[torch.Tensor],
     *,
-    kv_x=None,
+    kv_x: Optional[torch.Tensor] = None,
     causal: bool = True,
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_index: Optional[int] = None,
     return_kv: bool = False,
     is_cross: bool = False,
 ):
-    """Self-attention. Returns (out, new_kv): new_kv is (k, v) or None.
+    """Self- or cross-attention. Returns (out, new_kv): new_kv is (k, v) or None.
 
-    Decode (``cache`` given) writes this step's k/v into the cache
-    tensors in place (the JAX package donates the cache) and returns
-    them. Cross-attention belongs to the VLM slice.
+    Self-attention decode (``cache`` given) writes this step's k/v into
+    the cache tensors in place (the JAX package donates the cache) and
+    returns them. Cross-attention (``kv_x`` (B, N, D), or ``is_cross``)
+    projects k and v from ``kv_x``, or in decode takes them from
+    ``cache`` as they are, and applies no RoPE to q or k; in prefill and
+    in decode it runs the full non-causal attention of the queries over
+    the N keys through ``ops.attention`` (K1 on the card), as the JAX
+    package runs ``full_attention`` for both.
     """
-    if is_cross or kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention is ported with the VLM slice (llama-3.2-vision)")
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cross = is_cross or kv_x is not None
+    src = kv_x if cross else x
 
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
     if "bq" in params:
         q = q + params["bq"]
-    if "bk" in params:
-        k, v = k + params["bk"], v + params["bv"]
-    q = apply_rope(_split_heads(q, H, hd), positions, cfg.rope_theta)
-    k = apply_rope(_split_heads(k, K, hd), positions, cfg.rope_theta)
-    v = _split_heads(v, K, hd)
+    q = _split_heads(q, H, hd)
+
+    if cross and cache is not None:
+        # the cross k/v were computed at prefill and live in the cache
+        k, v = cache
+    else:
+        k = src @ params["wk"]
+        v = src @ params["wv"]
+        if "bk" in params:
+            k, v = k + params["bk"], v + params["bv"]
+        k = _split_heads(k, K, hd)
+        v = _split_heads(v, K, hd)
+        if not cross:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
     new_kv = None
-    if cache is not None:
+    if cache is not None and not cross:
         # ---- decode: GQA-folded against the K-head cache ----
         k_cache, v_cache = cache
         _write_cache(k_cache, k, cache_index)
@@ -183,7 +198,7 @@ def apply_attention(
         new_kv = (k_cache, v_cache)
         out = decode_attention(_gqa_fold(q, K), k_cache, v_cache, cache_index)
     else:
-        if return_kv:
+        if return_kv or cache is not None:
             new_kv = (k, v)
         # ---- K-head k/v straight into K1 on the card: no repeat_kv copy ----
         out = ops.attention(q, k, v, causal=causal)

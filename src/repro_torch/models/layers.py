@@ -21,6 +21,9 @@ class RunConfig:
     checkpointing of each layer's block under a gradient
     (``transformer._maybe_remat``); ``"dots"`` saves the matmul outputs
     and recomputes the rest, any other policy recomputes the whole block.
+    ``moe_group`` is the JAX package's too: the MoE layer routes its
+    tokens in groups of ``min(moe_group, tokens)``, each with its own
+    expert capacity (``moe.apply_moe``).
     The JAX RunConfig's sharding and attention-dispatch knobs have no
     counterpart yet: the port runs on one card, its full-H attention
     always goes through ``kernels.ops.attention`` and its chunked SSD
@@ -32,6 +35,7 @@ class RunConfig:
     device: str = "cuda"
     remat: bool = False                # activation checkpointing over blocks
     remat_policy: str = "none"        # none | dots | everything
+    moe_group: int = 2048              # MoE dispatch group size (tokens)
     ssd_chunk: int = 0                 # SSD chunk override (0 = ArchConfig's)
 
     def replace(self, **kw) -> "RunConfig":

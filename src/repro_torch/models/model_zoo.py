@@ -32,17 +32,27 @@ class Model:
 
     # -- training -------------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean CE of ``batch["labels"]`` (B, S) under the logits of
-        ``batch["tokens"]``: an f32 scalar that carries the graph back to
-        ``params`` when they require grad."""
+        """Mean CE of ``batch["labels"]`` (B, S) under the logits of the
+        batch's inputs (``apply``), plus 0.01 times the MoE aux loss: an
+        f32 scalar that carries the graph back to ``params`` when they
+        require grad."""
         logits, aux, _ = self.apply(params, batch)
         return transformer.lm_loss(logits, batch["labels"], self.cfg, aux)
 
     # -- forward ----------------------------------------------------------
     def apply(self, params, batch, return_cache: bool = False,
               last_only: bool = False):
-        return transformer.forward(params, self.cfg, self.rc, tokens=batch["tokens"],
-                                   return_cache=return_cache, last_only=last_only)
+        """Forward over the batch's inputs, by frontend: ``embeds`` (B, S, D)
+        for audio, ``tokens`` (B, S) and ``img_embeds`` (B, N, D) for
+        vision, ``tokens`` otherwise."""
+        cfg = self.cfg
+        kw = dict(return_cache=return_cache, last_only=last_only)
+        if cfg.frontend == "audio":
+            return transformer.forward(params, cfg, self.rc, embeds=batch["embeds"], **kw)
+        if cfg.frontend == "vision":
+            return transformer.forward(params, cfg, self.rc, tokens=batch["tokens"],
+                                       img_embeds=batch["img_embeds"], **kw)
+        return transformer.forward(params, cfg, self.rc, tokens=batch["tokens"], **kw)
 
     # -- serving ----------------------------------------------------------
     def prefill(self, params, batch):
@@ -51,7 +61,11 @@ class Model:
         return logits, cache
 
     def decode(self, params, cache, batch):
-        """One token against ``cache``; writes the cache in place."""
+        """One token (``embeds`` (B, 1, D) for audio) against ``cache``;
+        writes the cache in place."""
+        if self.cfg.frontend == "audio":
+            return transformer.decode_step(params, self.cfg, self.rc, cache, None,
+                                           embeds=batch["embeds"])
         return transformer.decode_step(params, self.cfg, self.rc, cache,
                                        batch["tokens"])
 

@@ -1,14 +1,23 @@
-"""Model assembly for the dense, ssm and hybrid families: stacked blocks,
-forward, decode.
+"""Model assembly: stacked blocks, forward, decode, one code path per family.
+
+  dense / moe / audio : homogeneous attention-block stack
+  ssm                 : homogeneous Mamba2 stack
+  hybrid (zamba2)     : Mamba2 stack in segments, ONE shared attn+MLP
+                        block applied after every ``attn_every`` layers
+  vlm (llama3.2-V)    : self-attention stack in segments, a gated
+                        cross-attention block after every
+                        ``cross_attn_every`` layers
 
 Params keep the JAX package's tree: a dict with ``embed``,
 ``final_norm`` and ``blocks``, whose leaves are stacked with a leading
-L axis. The JAX package's ``lax.scan`` over layers becomes a Python loop
-over that axis. The hybrid family (zamba2) runs its Mamba2 stack in
-segments of ``attn_every`` layers and applies ONE unstacked attention +
-MLP block, ``shared_block``, after every full segment; a shorter last
-segment gets none. The other families (moe, audio, vlm) raise
-``NotImplementedError`` naming the slice that ports them.
+L axis (plus the hybrid's unstacked ``shared_block`` and the vlm's
+``cross_blocks``, stacked over L // cross_attn_every). The JAX
+package's ``lax.scan`` over layers becomes a Python loop over that
+axis. A moe block holds ``moe`` (``models/moe.py``) where a dense one
+holds ``mlp``, and adds its aux loss to the forward's; the audio family
+takes frame embeddings (``embeds``) in place of tokens; a cross block
+has no MLP and adds ``tanh(gate) * attention(image)``. A segment shorter
+than its period (the hybrid's 38 = 6 * 6 + 2) gets no block after it.
 
 With ``RunConfig.remat`` each layer's block is checkpointed under a
 gradient (``_maybe_remat``), as the JAX package wraps its scan bodies;
@@ -23,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init,
                                        init_mlp, rms_norm, softmax_cross_entropy)
@@ -30,19 +40,14 @@ from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init,
 # SSM / router leaves that stay f32 through compute-dtype casting
 _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "router", "gate")
 
-_PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-_SLICE_OF_FAMILY = {
-    "moe": "the MoE slice",
-    "audio": "the audio slice",
-    "vlm": "the VLM slice",
-}
+# the families whose blocks are one homogeneous attention stack
+_ATTN_STACK = ("dense", "moe", "audio", "vlm")
+_FAMILIES = _ATTN_STACK + ("ssm", "hybrid")
 
 
-def _require_ported(cfg) -> None:
-    if cfg.family not in _PORTED_FAMILIES:
-        slice_ = _SLICE_OF_FAMILY.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is ported with {slice_}")
+def _require_family(cfg) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(cfg.family)
 
 
 def _cast_params(params, rc: RunConfig):
@@ -69,9 +74,10 @@ def _layer(tree, i: int):
 
 
 def _segments(n_layers: int, every: int):
-    """[(a, b, apply_shared_after), ...] covering n_layers in runs of
+    """[(a, b, apply_special_after), ...] covering n_layers in runs of
     ``every`` (the JAX package's): only a full run is followed by the
-    shared block, so a shorter last run (38 = 6 * 6 + 2) gets none."""
+    hybrid's shared block or the vlm's cross block, so a shorter last run
+    (38 = 6 * 6 + 2) gets none."""
     segs = []
     a = 0
     while a < n_layers:
@@ -92,13 +98,17 @@ def _mamba_segments(cfg):
 # ---------------------------------------------------------------------------
 # Initialisation
 # ---------------------------------------------------------------------------
-def _init_attn_block(gen, cfg, dtype, device):
-    return {
+def _init_attn_block(gen, cfg, dtype, device, use_moe: bool = False):
+    p = {
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
         "attn": attn_lib.init_attention(gen, cfg, dtype, device),
         "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
 
 
 def _init_mamba_block(gen, cfg, dtype, device):
@@ -108,20 +118,40 @@ def _init_mamba_block(gen, cfg, dtype, device):
     }
 
 
+def _init_cross_block(gen, cfg, dtype, device):
+    return {
+        "ln": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
+        "attn": attn_lib.init_attention(gen, cfg, dtype, device, cross=True),
+        "gate": torch.zeros((), dtype=torch.float32, device=device),
+    }
+
+
 def _stack(trees):
-    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+    """One tree whose leaves stack ``trees``' along a new leading axis.
+
+    ``trees`` are emptied as they are stacked: each leaf's layers are
+    released as soon as their stack exists, so the peak is the stacked
+    tree plus one leaf's layers, not two copies of the tree (30 GB of
+    qwen2-moe-a2.7b's experts in bf16).
+    """
+    out = {}
+    for k in list(trees[0]):
+        vals = [t.pop(k) for t in trees]
+        out[k] = _stack(vals) if isinstance(vals[0], dict) else torch.stack(vals)
+        del vals
+    return out
 
 
 def init_params(cfg, gen: Optional[torch.Generator], rc: RunConfig) -> Dict[str, Any]:
     """Random params with the JAX package's distributions, on ``rc.device``.
 
-    truncated-normal fan-in matrices (``wo`` and the Mamba2 ``out``
-    scaled by 1/sqrt(2L)), embeddings N(0, 0.02), zero biases and norms,
-    and the Mamba2 leaves of ``ssm.init_mamba``. ``gen`` must live on
-    ``rc.device``; it may be None only on the meta device.
+    truncated-normal fan-in matrices (``wo``, the experts' ``w2`` and
+    the Mamba2 ``out`` scaled by 1/sqrt(2L)), embeddings N(0, 0.02),
+    zero biases, norms and cross-block gates, and the Mamba2 leaves of
+    ``ssm.init_mamba``. ``gen`` must live on ``rc.device``; it may be
+    None only on the meta device.
     """
-    _require_ported(cfg)
+    _require_family(cfg)
     dtype, device = rc.param_dtype, torch.device(rc.device)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_padded, cfg.d_model), dtype, device),
@@ -129,12 +159,23 @@ def init_params(cfg, gen: Optional[torch.Generator], rc: RunConfig) -> Dict[str,
     }
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, (cfg.vocab_padded, cfg.d_model), dtype, device)
-    init_block = _init_attn_block if cfg.family == "dense" else _init_mamba_block
-    params["blocks"] = _stack([init_block(gen, cfg, dtype, device)
-                               for _ in range(cfg.n_layers)])
+    if cfg.family in _ATTN_STACK:
+        use_moe = cfg.family == "moe"
+        params["blocks"] = _stack([_init_attn_block(gen, cfg, dtype, device, use_moe)
+                                   for _ in range(cfg.n_layers)])
+    else:
+        params["blocks"] = _stack([_init_mamba_block(gen, cfg, dtype, device)
+                                   for _ in range(cfg.n_layers)])
     if cfg.family == "hybrid":
         params["shared_block"] = _init_attn_block(gen, cfg, dtype, device)
+    if cfg.family == "vlm":
+        params["cross_blocks"] = _stack([_init_cross_block(gen, cfg, dtype, device)
+                                         for _ in range(_n_cross(cfg))])
     return params
+
+
+def _n_cross(cfg) -> int:
+    return cfg.n_layers // cfg.cross_attn_every
 
 
 # ---------------------------------------------------------------------------
@@ -142,14 +183,19 @@ def init_params(cfg, gen: Optional[torch.Generator], rc: RunConfig) -> Dict[str,
 # ---------------------------------------------------------------------------
 def _apply_attn_block(bp, h, cfg, rc, positions, *, cache=None, cache_index=None,
                       return_kv=False):
+    """-> (h, kv, aux): aux is the MoE's aux loss, None for an MLP block."""
     x1 = rms_norm(h, bp["ln1"], cfg.norm_eps)
     a, kv = attn_lib.apply_attention(
         bp["attn"], x1, cfg, rc, positions,
         cache=cache, cache_index=cache_index, return_kv=return_kv)
     h = h + a
     x2 = rms_norm(h, bp["ln2"], cfg.norm_eps)
-    h = h + apply_mlp(bp["mlp"], x2, gelu=cfg.gelu_mlp)
-    return h, kv
+    aux = None
+    if "moe" in bp:
+        m, aux = moe_lib.apply_moe(bp["moe"], x2, cfg, rc)
+    else:
+        m = apply_mlp(bp["mlp"], x2, gelu=cfg.gelu_mlp)
+    return h + m, kv, aux
 
 
 def _apply_mamba_block(bp, h, cfg, rc, *, state=None, return_state=False):
@@ -157,6 +203,15 @@ def _apply_mamba_block(bp, h, cfg, rc, *, state=None, return_state=False):
     y, new_state = ssm_lib.apply_mamba(bp["mamba"], x1, cfg, rc, state=state,
                                        return_state=return_state)
     return h + y, new_state
+
+
+def _apply_cross_block(bp, h, cfg, rc, img_embeds, *, cache=None):
+    """Gated cross-attention to the image: no MLP, no RoPE, not causal.
+    ``img_embeds`` (B, N, D) in prefill, or the cached (xk, xv) in decode."""
+    a, kv = attn_lib.apply_attention(
+        bp["attn"], rms_norm(h, bp["ln"], cfg.norm_eps), cfg, rc, None,
+        kv_x=img_embeds, causal=False, cache=cache, return_kv=True, is_cross=True)
+    return h + torch.tanh(bp["gate"]).to(h.dtype) * a, kv
 
 
 # what ``remat_policy="dots"`` saves: the outputs of the matmuls, as
@@ -200,66 +255,116 @@ def _logits(params, h, cfg):
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
-def forward(params, cfg, rc: RunConfig, *, tokens: torch.Tensor,
-            return_cache: bool = False, last_only: bool = False):
-    """Full-sequence forward over tokens (B, S).
-
-    Returns (logits, aux_loss, cache). The cache is None unless
-    ``return_cache`` (prefill); then it is {"k", "v": (L, B, S, K, hd),
-    "pos": S} for the dense family, {"ssm": SSMState stacked over L,
-    "pos": S} for the ssm family, and for the hybrid that state plus the
-    shared block's "k", "v": (n_apps, B, S, K, hd), one per application;
-    ``pos`` is a host int. ``last_only`` emits logits for the final
-    position only (what serving prefill needs).
-    """
-    _require_ported(cfg)
-    params = _cast_params(params, rc)
-    h = params["embed"][tokens]
-    B, S = tokens.shape
+def _embed(params, cfg, rc: RunConfig, tokens, embeds):
+    """The residual stream's input: ``embeds`` (B, S, D) cast to the compute
+    dtype (audio frames), else the embedding rows of ``tokens`` (B, S)."""
+    h = embeds.to(rc.compute_dtype) if embeds is not None else params["embed"][tokens]
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=rc.compute_dtype)
+    return h
 
-    cache = None
+
+def forward(params, cfg, rc: RunConfig, *, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            img_embeds: Optional[torch.Tensor] = None,
+            return_cache: bool = False, last_only: bool = False):
+    """Full-sequence forward over tokens (B, S), or frame embeddings
+    ``embeds`` (B, S, D) for the audio family; a vlm also takes
+    ``img_embeds`` (B, N, D), and without them runs its self-attention
+    stack alone, as the JAX package does.
+
+    Returns (logits, aux_loss, cache). aux_loss is the f32 sum of the
+    MoE layers' aux losses (0 for the other families). The cache is None
+    unless ``return_cache`` (prefill); then it is {"k", "v": (L, B, S, K,
+    hd), "pos": S} for the attention stacks, plus the cross blocks'
+    "xk", "xv": (L // cross_attn_every, B, N, K, hd) for a vlm given an
+    image; {"ssm": SSMState stacked over L, "pos": S} for the ssm family,
+    and for the hybrid that state plus the shared block's "k", "v":
+    (n_apps, B, S, K, hd), one per application; ``pos`` is a host int.
+    ``last_only`` emits logits for the final position only (what serving
+    prefill needs).
+    """
+    _require_family(cfg)
+    params = _cast_params(params, rc)
+    h = _embed(params, cfg, rc, tokens, embeds)
+    S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
-    ks, vs = [], []
     if cfg.family in ("ssm", "hybrid"):
-        states = (ssm_lib.init_ssm_state(cfg, B, rc.compute_dtype, h.device,
-                                         layers=cfg.n_layers)
-                  if return_cache else None)
-        mamba_block = _maybe_remat(lambda bp, hh: _apply_mamba_block(
-            bp, hh, cfg, rc, return_state=return_cache), rc)
-        for a, b, shared in _mamba_segments(cfg):
-            for i in range(a, b):
-                h, st = mamba_block(_layer(params["blocks"], i), h)
-                if return_cache:
-                    for dst, src in zip(states, st):
-                        dst[i].copy_(src)
-            if shared:
-                h, kv = _apply_attn_block(params["shared_block"], h, cfg, rc,
-                                          positions, return_kv=return_cache)
-                if return_cache:
-                    ks.append(kv[0])
-                    vs.append(kv[1])
-        if return_cache:
-            cache = {"ssm": states, "pos": S}
-            if cfg.family == "hybrid":
-                cache.update(k=torch.stack(ks), v=torch.stack(vs))
+        h, cache = _mamba_forward(params, cfg, rc, h, positions, return_cache)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     else:
-        attn_block = _maybe_remat(lambda bp, hh: _apply_attn_block(
-            bp, hh, cfg, rc, positions, return_kv=return_cache), rc)
-        for i in range(cfg.n_layers):
-            h, kv = attn_block(_layer(params["blocks"], i), h)
+        img = img_embeds if cfg.family == "vlm" else None
+        h, cache, aux = _attn_forward(params, cfg, rc, h, positions, img, return_cache)
+    if return_cache:
+        cache["pos"] = S
+    if last_only:
+        h = h[:, -1:, :]
+    return _logits(params, h, cfg), aux, cache
+
+
+def _attn_forward(params, cfg, rc, h, positions, img, return_cache):
+    """The attention stack (dense, moe, audio, vlm) -> (h, cache, aux).
+
+    With ``img`` (a vlm's image), a cross block follows every full
+    segment of ``cross_attn_every`` layers."""
+    attn_block = _maybe_remat(lambda bp, hh: _apply_attn_block(
+        bp, hh, cfg, rc, positions, return_kv=return_cache), rc)
+    segs = ([(0, cfg.n_layers, False)] if img is None
+            else _segments(cfg.n_layers, cfg.cross_attn_every))
+    if img is not None:
+        img = img.to(rc.compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    ks, vs, xks, xvs = [], [], [], []
+    ci = 0
+    for a, b, cross in segs:
+        for i in range(a, b):
+            h, kv, layer_aux = attn_block(_layer(params["blocks"], i), h)
+            if layer_aux is not None:
+                aux = aux + layer_aux
             if return_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
-        if return_cache:
-            cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": S}
+        if cross:
+            h, xkv = _apply_cross_block(_layer(params["cross_blocks"], ci), h, cfg, rc, img)
+            if return_cache:
+                xks.append(xkv[0])
+                xvs.append(xkv[1])
+            ci += 1
+    cache = None
+    if return_cache:
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if img is not None:
+            cache.update(xk=torch.stack(xks), xv=torch.stack(xvs))
+    return h, cache, aux
 
-    if last_only:
-        h = h[:, -1:, :]
-    logits = _logits(params, h, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return logits, aux, cache
+
+def _mamba_forward(params, cfg, rc, h, positions, return_cache):
+    """The Mamba2 stack (ssm), with the shared block after every full
+    segment (hybrid) -> (h, cache)."""
+    states = (ssm_lib.init_ssm_state(cfg, h.shape[0], rc.compute_dtype, h.device,
+                                     layers=cfg.n_layers)
+              if return_cache else None)
+    mamba_block = _maybe_remat(lambda bp, hh: _apply_mamba_block(
+        bp, hh, cfg, rc, return_state=return_cache), rc)
+    ks, vs = [], []
+    for a, b, shared in _mamba_segments(cfg):
+        for i in range(a, b):
+            h, st = mamba_block(_layer(params["blocks"], i), h)
+            if return_cache:
+                for dst, src in zip(states, st):
+                    dst[i].copy_(src)
+        if shared:
+            h, kv, _ = _apply_attn_block(params["shared_block"], h, cfg, rc,
+                                         positions, return_kv=return_cache)
+            if return_cache:
+                ks.append(kv[0])
+                vs.append(kv[1])
+    cache = None
+    if return_cache:
+        cache = {"ssm": states}
+        if cfg.family == "hybrid":
+            cache.update(k=torch.stack(ks), v=torch.stack(vs))
+    return h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -269,11 +374,12 @@ def init_cache(cfg, rc: RunConfig, batch: int, max_len: int):
     """Zeroed decode cache, the structure forward(return_cache=True) gives.
 
     The SSM state does not grow with the sequence: ``max_len`` sizes only
-    the k/v, of every layer (dense) or of every shared-block application
-    (hybrid). Each layer's state is its own zeroed allocation (no
-    broadcast views), since decode writes it in place.
+    the k/v, of every layer (attention stacks) or of every shared-block
+    application (hybrid). A vlm's cache adds the cross blocks' "xk" and
+    "xv", sized by ``n_img_tokens``. Each layer's state is its own zeroed
+    allocation (no broadcast views), since decode writes it in place.
     """
-    _require_ported(cfg)
+    _require_family(cfg)
     device = torch.device(rc.device)
     K, hd, L = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
     kw = dict(dtype=rc.compute_dtype, device=device)
@@ -282,32 +388,35 @@ def init_cache(cfg, rc: RunConfig, batch: int, max_len: int):
         cache["ssm"] = ssm_lib.init_ssm_state(cfg, batch, rc.compute_dtype, device,
                                               layers=L)
     if cfg.family != "ssm":
-        n_kv = (L if cfg.family == "dense"
-                else sum(shared for *_, shared in _mamba_segments(cfg)))
+        n_kv = (sum(shared for *_, shared in _mamba_segments(cfg))
+                if cfg.family == "hybrid" else L)
         shape = (n_kv, batch, max_len, K, hd)
         cache.update(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw))
+    if cfg.family == "vlm":
+        shape = (_n_cross(cfg), batch, cfg.n_img_tokens, K, hd)
+        cache.update(xk=torch.zeros(shape, **kw), xv=torch.zeros(shape, **kw))
     cache["pos"] = 0
     return cache
 
 
-def decode_step(params, cfg, rc: RunConfig, cache, tokens: torch.Tensor):
-    """One decode step. tokens: (B, 1) int.
+def decode_step(params, cfg, rc: RunConfig, cache, tokens: Optional[torch.Tensor], *,
+                embeds: Optional[torch.Tensor] = None):
+    """One decode step. tokens: (B, 1) int, or embeds (B, 1, D) for audio.
 
     Returns (logits (B, 1, Vp), new_cache). The cache is written in place
     (the JAX package donates it): this step's k/v into ``cache["k"]`` /
     ``cache["v"]`` (of each layer, or of each shared-block application),
-    and each Mamba2 layer's new state into ``cache["ssm"]``. new_cache
-    holds the same tensors and pos + 1. ``pos`` is a host int, so a step
-    forces no device sync.
+    and each Mamba2 layer's new state into ``cache["ssm"]``; a vlm's
+    cross blocks read ``cache["xk"]`` / ``cache["xv"]`` and write
+    nothing. new_cache holds the same tensors and pos + 1. ``pos`` is a
+    host int, so a step forces no device sync.
     """
-    _require_ported(cfg)
+    _require_family(cfg)
     params = _cast_params(params, rc)
     index = int(cache["pos"])
-    h = params["embed"][tokens]
-    if cfg.scale_embeddings:
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=rc.compute_dtype)
+    h = _embed(params, cfg, rc, tokens, embeds)
 
-    positions = torch.full(tokens.shape[:1] + (1,), index, device=h.device)
+    positions = torch.full((h.shape[0], 1), index, device=h.device)
     if cfg.family in ("ssm", "hybrid"):
         states = cache["ssm"]
         app = 0
@@ -318,15 +427,23 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: torch.Tensor):
                 for dst, src in zip(states, st):
                     dst[i].copy_(src)
             if shared:
-                h, _ = _apply_attn_block(params["shared_block"], h, cfg, rc, positions,
-                                         cache=(cache["k"][app], cache["v"][app]),
-                                         cache_index=index)
+                h, _, _ = _apply_attn_block(params["shared_block"], h, cfg, rc, positions,
+                                            cache=(cache["k"][app], cache["v"][app]),
+                                            cache_index=index)
                 app += 1
     else:
-        for i in range(cfg.n_layers):
-            h, _ = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc, positions,
-                                     cache=(cache["k"][i], cache["v"][i]),
-                                     cache_index=index)
+        segs = (_segments(cfg.n_layers, cfg.cross_attn_every) if cfg.family == "vlm"
+                else [(0, cfg.n_layers, False)])
+        ci = 0
+        for a, b, cross in segs:
+            for i in range(a, b):
+                h, _, _ = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc,
+                                            positions, cache=(cache["k"][i], cache["v"][i]),
+                                            cache_index=index)
+            if cross:
+                h, _ = _apply_cross_block(_layer(params["cross_blocks"], ci), h, cfg, rc,
+                                          None, cache=(cache["xk"][ci], cache["xv"][ci]))
+                ci += 1
 
     new_cache = dict(cache)
     new_cache["pos"] = index + 1

@@ -39,8 +39,9 @@ def build_decode_step(cfg, shape_cfg, mesh=None, *,
     Returns (step, params_meta, cache_meta, batch_meta, None, model).
     ``step(params, cache, batch) -> (logits (B, 1, Vp), cache)`` writes
     the cache in place, as the JAX step donates it. ``seq_len`` sizes the
-    k/v of a dense cache and of a hybrid's shared-block applications; the
-    SSM state (ssm and hybrid) is the same size whatever ``seq_len`` says.
+    self-attention k/v of every attention stack and of a hybrid's
+    shared-block applications; the SSM state (ssm and hybrid) and a vlm's
+    cross k/v are the same size whatever ``seq_len`` says.
     """
     _require_no_mesh(mesh)
     model = build(cfg, rc or RunConfig())
@@ -53,9 +54,11 @@ def build_decode_step(cfg, shape_cfg, mesh=None, *,
 def grow_cache(cache, extra: int):
     """Room for ``extra`` more tokens along a KV cache's T axis, zero-filled.
 
-    The k/v of shape (L, B, T, K, hd) are padded at the end of T, as the
-    JAX serving example does with ``jnp.pad`` before it decodes. An SSM
-    cache holds a fixed-size state and no k/v: it is returned as it is.
+    The self-attention k/v of shape (L, B, T, K, hd) are padded at the
+    end of T, as the JAX serving example does with ``jnp.pad`` before it
+    decodes. A vlm's cross-attention ``xk``/``xv`` (n_cross, B, N, K, hd)
+    hold the image's keys, which do not grow: they, like an SSM state,
+    are returned as they are.
     """
     if "k" not in cache:
         return cache

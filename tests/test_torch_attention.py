@@ -194,11 +194,46 @@ def test_apply_attention_decode(dtype, groups):
 
 
 def test_cross_attention_names_its_slice():
+    """Cross-attention, ported with the VLM slice: q from x, k and v from
+    the image ``kv_x`` (no RoPE, no bias, not causal, through
+    ``ops.attention``), and in decode k and v taken from the cache as they
+    are (not written); f32 against the JAX package's apply_attention."""
     jc, tc = _cfg(2)
-    _, tp = _attn_params(jc, "float32", seed=7)
-    x = torch.zeros((1, 4, tc.d_model))
-    with pytest.raises(NotImplementedError, match="VLM"):
-        ta.apply_attention(tp, x, tc, RunConfig(device="cpu"), None, kv_x=x)
+    p = ja.init_attention(jax.random.PRNGKey(7), jc, jnp.float32, cross=True)
+    assert sorted(p) == ["wk", "wo", "wq", "wv"]               # no q/k/v bias
+    tp = params_from_jax({k: np.asarray(v) for k, v in p.items()}, device="cpu")
+    assert sorted(tp) == sorted(ta.init_attention(torch.Generator().manual_seed(0), tc,
+                                                  torch.float32, "cpu", cross=True))
+    rng = np.random.default_rng(7)
+    xj, xt = _pair(rng, (2, 12, jc.d_model), "float32")
+    imgj, imgt = _pair(rng, (2, 16, jc.d_model), "float32")
+    rc, jrc = RunConfig(device="cpu", compute_dtype=torch.float32), JaxRunConfig()
+    out_j, (kj, vj) = ja.apply_attention(p, xj, jc, jrc, None, kv_x=imgj, causal=False,
+                                         return_kv=True, is_cross=True)
+    calls = []
+    attention = ops.attention
+
+    def spy(q, k, v, *, causal=True):
+        calls.append((tuple(q.shape), tuple(k.shape), causal))
+        return attention(q, k, v, causal=causal)
+    ops.attention = spy
+    try:
+        out_t, (kt, vt) = ta.apply_attention(tp, xt, tc, rc, None, kv_x=imgt, causal=False,
+                                             return_kv=True, is_cross=True)
+        step_j, _ = ja.apply_attention(p, xj[:, :1], jc, jrc, None, causal=False,
+                                       cache=(kj, vj), is_cross=True)
+        kc, vc = kt.clone(), vt.clone()
+        step_t, kv = ta.apply_attention(tp, xt[:, :1], tc, rc, None, causal=False,
+                                        cache=(kc, vc), is_cross=True)
+    finally:
+        ops.attention = attention
+    assert calls == [((2, 12, 4, 32), (2, 16, 2, 32), False),
+                     ((2, 1, 4, 32), (2, 16, 2, 32), False)]
+    _close(out_j, out_t, TOL["float32"])
+    _close(kj, kt, TOL["float32"])
+    _close(vj, vt, TOL["float32"])
+    _close(step_j, step_t, TOL["float32"])
+    assert kv[0] is kc and torch.equal(kc, kt) and torch.equal(vc, vt)   # read, not written
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,14 @@ with remat off, "full" and "dots".
 
 Models: the reduced qwen2-0.5b, mamba2-2.7b, zamba2-1.2b (hybrid) and
 gemma-7b at head_dim 256 decode token by token to their forward's f32
-logits (2e-3) with the launch counts checked; a Mamba2 layer under
+logits (2e-3) with the launch counts checked; so do the reduced
+qwen2-moe-a2.7b and llama4-scout-17b-a16e (at capacity factor 16,
+drop-free), musicgen-medium (frame embeddings in) and
+llama-3.2-vision-11b (gates set to 1, image embeddings in; K1 in every
+cross block of the prefill and of each decode step), after a prefill of
+the first 5 positions. K1 is held against its plain version at the
+vlm's two cross-attention shapes (B=8, T=1601 image keys, H=32 over
+K=8, hd 128, not causal; S=512 and S=1). A Mamba2 layer under
 ``RunConfig(ssd_chunk=256)`` (above K2's 128) runs K2 at the largest
 chunk it takes and agrees with the CPU's scan at 256.
 """
@@ -101,6 +108,25 @@ def test_k1_gqa_matches_plain(card, B, S, T, H, K, hd, dtype, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [512, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_cross_attention_shapes_match_plain(card, S, dtype):
+    """llama-3.2-vision-11b's cross-attention: S=512 queries in the prefill,
+    1 in a decode step, over 1601 image keys (a ragged last tile)."""
+    gen = torch.Generator(device=card).manual_seed(S)
+    q = torch.randn((8, S, 32, 128), generator=gen, device=card).to(TORCH_DTYPE[dtype])
+    k, v = (torch.randn((8, 1601, 8, 128), generator=gen, device=card)
+            .to(TORCH_DTYPE[dtype]) for _ in range(2))
+    before = ops.attention.launches
+    out = ops.attention(q, k, v, causal=False)
+    assert ops.attention.launches == before + 1
+    expect = ref.attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), expect.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
 def test_k1_refuses_kv_heads_that_do_not_divide_h(card):
     q = torch.zeros((1, 8, 14, 64), device=card, dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 4, 64), device=card, dtype=torch.bfloat16)
@@ -164,6 +190,51 @@ def test_reduced_gemma_head_dim_256_decode_matches_forward_on_card(card):
     embeddings): K1 at hd 256 once per layer."""
     cfg = dataclasses.replace(get_config("gemma-7b").reduced(), head_dim=256)
     _decode_matches_forward(card, cfg, {"attention": cfg.n_layers, "ssd": 0})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+                                  "musicgen-medium", "llama-3.2-vision-11b"])
+def test_reduced_moe_audio_vlm_decode_matches_forward_on_card(card, arch):
+    """prefill(inputs[:5]) + decode(inputs[5:]) against forward(inputs),
+    f32 (2e-3): K1 once per layer (and cross block) in the forward and
+    the prefill, once per cross block in each decode step."""
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+    model = build(cfg, RunConfig(param_dtype=torch.float32,
+                                 compute_dtype=torch.float32, device="cuda"))
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    n_cross = cfg.n_layers // cfg.cross_attn_every if cfg.family == "vlm" else 0
+    if n_cross:
+        params["cross_blocks"]["gate"].fill_(1.0)
+    B, S, split = 2, 12, 5
+    gen = torch.Generator(device=card).manual_seed(1)
+    if cfg.frontend == "audio":
+        batch = {"embeds": torch.randn((B, S, cfg.d_model), generator=gen, device=card)}
+    else:
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(card)}
+        if cfg.frontend == "vision":
+            batch["img_embeds"] = torch.randn((B, cfg.n_img_tokens, cfg.d_model),
+                                              generator=gen, device=card)
+    key = "embeds" if cfg.frontend == "audio" else "tokens"
+    before = ops.attention.launches
+    full, _, _ = model.apply(params, batch)
+    assert ops.attention.launches - before == cfg.n_layers + n_cross
+    _, cache = model.prefill(params, {k: v[:, :split] if k == key else v
+                                      for k, v in batch.items()})
+    pad = (0, 0, 0, 0, 0, S - split)
+    cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pad),
+                 v=torch.nn.functional.pad(cache["v"], pad))
+    before = ops.attention.launches
+    outs = []
+    for t in range(split, S):
+        logits, cache = model.decode(params, cache, {key: batch[key][:, t:t + 1]})
+        outs.append(logits)
+    assert ops.attention.launches - before == (S - split) * n_cross
+    err = (torch.cat(outs, dim=1) - full[:, split:]).abs().max()
+    assert float(err) < 2e-3, float(err)
 
 
 @pytest.mark.cuda

@@ -37,7 +37,9 @@ def _close(j, t, tol):
 # configs: the port keeps its own copy; it must equal the reference
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b",
-                                  "qwen2-1.5b", "deepseek-67b"])
+                                  "qwen2-1.5b", "deepseek-67b", "qwen2-moe-a2.7b",
+                                  "llama4-scout-17b-a16e", "musicgen-medium",
+                                  "llama-3.2-vision-11b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_copy_matches_reference(reduced, arch):
     a, b = jcfg.get_config(arch), tcfg.get_config(arch)
@@ -51,8 +53,10 @@ def test_config_copy_matches_reference(reduced, arch):
 def test_shapes_and_registry():
     assert {k: dataclasses.asdict(v) for k, v in jcfg.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in tcfg.SHAPES.items()}
-    assert tcfg.list_configs() == ["deepseek-67b", "gemma-7b", "mamba2-2.7b", "qwen2-0.5b",
-                                   "qwen2-1.5b", "zamba2-1.2b"]
+    assert tcfg.list_configs() == jcfg.list_configs() == [
+        "deepseek-67b", "gemma-7b", "llama-3.2-vision-11b", "llama4-scout-17b-a16e",
+        "mamba2-2.7b", "musicgen-medium", "qwen2-0.5b", "qwen2-1.5b", "qwen2-moe-a2.7b",
+        "zamba2-1.2b"]
     cfg = tcfg.get_config("qwen2-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_padded) == \
@@ -79,8 +83,23 @@ def test_shapes_and_registry():
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
             cfg.d_ff, cfg.vocab_padded, cfg.tie_embeddings) == \
         (95, 8192, 64, 8, 128, 22016, 102400, False)
+    cfg = tcfg.get_config("qwen2-moe-a2.7b")      # registered with its published shape
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.n_experts, cfg.n_experts_padded, cfg.top_k,
+            cfg.expert_d_ff, cfg.shared_expert_d_ff, cfg.capacity_factor, cfg.qkv_bias,
+            cfg.vocab_padded) == \
+        ("moe", 24, 2048, 16, 16, 128, 60, 64, 4, 1408, 5632, 1.25, True, 152064)
+    cfg = tcfg.get_config("musicgen-medium")
+    assert (cfg.family, cfg.frontend, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_padded) == \
+        ("audio", "audio", 48, 1536, 24, 24, 64, 6144, 2048)
+    cfg = tcfg.get_config("llama-3.2-vision-11b")
+    assert (cfg.family, cfg.frontend, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.cross_attn_every,
+            cfg.n_img_tokens, cfg.vocab_padded) == \
+        ("vlm", "vision", 40, 4096, 32, 8, 128, 14336, 5, 1601, 128256)
     with pytest.raises(KeyError):
-        tcfg.get_config("qwen2-moe-a2.7b")
+        tcfg.get_config("qwen3-moe")
 
 
 def _leaves(tree, prefix=""):

@@ -264,10 +264,13 @@ def test_out_of_slice_paths_raise():
         build_prefill_step(cfg, object(), B=1, S=4, rc=rc)
     with pytest.raises(NotImplementedError, match="parallel"):
         build_decode_step(cfg, ShapeConfig("d", "decode", 4, 1), object(), rc=rc)
-    for family, name in (("moe", "MoE"), ("vlm", "VLM")):
-        model = build(dataclasses.replace(cfg, family=family), rc)
-        with pytest.raises(NotImplementedError, match=name):
-            model.init(torch.Generator().manual_seed(0))
+    # every family builds now; an unknown one raises ValueError, as in the JAX package
+    model = build(dataclasses.replace(cfg, family="diffusion"), rc)
+    for call in (lambda: model.init(torch.Generator().manual_seed(0)),
+                 lambda: model.init_cache(1, 4),
+                 lambda: model.apply({}, {"tokens": torch.zeros((1, 4), dtype=torch.long)})):
+        with pytest.raises(ValueError, match="diffusion"):
+            call()
 
 
 def test_launch_counter_counts_only_the_card():
@@ -297,6 +300,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "         'repro_torch.configs.zamba2_1p2b', 'repro_torch.configs.gemma_7b',\n"
         "         'repro_torch.configs.qwen2_1p5b', 'repro_torch.configs.deepseek_67b',\n"
         "         'repro_torch.configs.workflows', 'repro_torch.examples',\n"
+        "         'repro_torch.models.moe', 'repro_torch.configs.qwen2_moe_a2p7b',\n"
+        "         'repro_torch.configs.llama4_scout_17b_a16e',\n"
+        "         'repro_torch.configs.musicgen_medium', 'repro_torch.configs.llama32_vision_11b',\n"
         "         'repro_torch.examples.serve_batch', 'repro_torch.examples.workflow_train',\n"
         "         'repro_torch.core', 'repro_torch.core.policy'}\n"
         "named |= {f'repro_torch.core.{m}' for m in (\n"

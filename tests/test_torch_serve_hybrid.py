@@ -404,7 +404,15 @@ def test_chip_smoke_expected_launches(chip_smoke):
                       "qwen2-1.5b": {"attention": 28, "ssd": 0},
                       "mamba2-2.7b": {"attention": 0, "ssd": 64},
                       "zamba2-1.2b": {"attention": 6, "ssd": 38},
-                      "gemma-7b": {"attention": 28, "ssd": 0}}
+                      "gemma-7b": {"attention": 28, "ssd": 0},
+                      "qwen2-moe-a2.7b": {"attention": 24, "ssd": 0},
+                      "musicgen-medium": {"attention": 48, "ssd": 0},
+                      "llama-3.2-vision-11b": {"attention": 40 + 8, "ssd": 0}}
+    per_step = {name: chip_smoke.expected_decode_launches(get_config(name))
+                for name in chip_smoke.SERVE_ARCHS}
+    assert per_step["llama-3.2-vision-11b"] == {"attention": 8, "ssd": 0}
+    assert all(n == {"attention": 0, "ssd": 0} for name, n in per_step.items()
+               if name != "llama-3.2-vision-11b")
     assert chip_smoke.expected_launches(get_config(ARCH).reduced()) == \
         {"attention": 2, "ssd": 4}
     tail = dataclasses.replace(get_config(ARCH).reduced(), n_layers=5)
