@@ -127,14 +127,42 @@ Phases; any failure exits non-zero and prints no result line:
    every gradient leaf within 1e-5 of its largest value (the
    embedding's scatter-add is not deterministic); each one's peak
    memory is printed.
-8. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
+8. Train the moe, audio and vlm families, each part with the counts set
+   to 0 first. (a) K1 under a gradient at the vlm's cross-attention
+   shape (B=8, S=512 queries over T=1601 image keys, H=32 over K=8, hd
+   128, not causal; bf16 and f32) against autograd through the plain
+   version (``K1_GRAD_TOL``), with the backward's ms (``ref.
+   attention_bwd``) beside its bound and SDPA forward + backward. (b)-(d)
+   4 AdamW steps each of full-width qwen2-moe-a2.7b cut to 2 of its 24
+   layers, musicgen-medium at full depth and llama-3.2-vision-11b cut to
+   one full segment (5 self-attention layers and 1 cross block), under
+   phase 7's settings (remat "full"; peak lr ``TRAIN_8_LR``: 3e-5, 1e-4
+   and 1e-5, the widest model the lowest), on
+   ``SyntheticLM`` batches with their frontend's inputs (frame
+   embeddings; image embeddings) and the vlm's gates at ``CROSS_GATE``:
+   the f32 train state at 28 bytes a parameter sets the cuts (424 GB and
+   283 GB at full depth). A falling, finite loss and
+   ``expected_train_launches`` a step: K1 4, 96 and 11 (2 per rematted
+   self-attention layer, 1 per cross block, which is not rematted).
+   Each prints its median step ms, trained tokens/s and peak memory.
+   (e)-(g) f32 forward + backward (``value_and_grad`` of ``Model.loss``,
+   no step: about 12 bytes a parameter) with the kernels against the
+   same with their plain versions, from one state and one batch, at
+   qwen2-moe 2 layers, musicgen cut to 8 and the vlm at 5 + 1: loss
+   within 1e-4 relative and every gradient leaf within 1e-4 of its plain
+   leaf's largest value (``TRAIN_PLAIN_TOL``). The MoE's routing is
+   recorded in both runs: routed alike, the bound holds on every leaf; a
+   flipped choice whose two candidates' probabilities lie within
+   ``NEAR_TIE`` of each other is a near-tie, counted, and the bound then
+   holds on the leaves outside ``blocks/moe``; any other flip fails.
+9. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the served models' prefills, ``launches_by_arch`` per model,
    ``decode_launches_per_step_by_arch`` where a decode step launches it,
    ``at`` its numbers at each model's prefill shape (K1's also at the
-   vlm's cross shapes), and K2's at its
-   train shapes; ``train_launches_per_step_by_arch`` per trained model;
-   K1's also per workflow pod), the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": ...}`` line.
+   vlm's cross shapes, and under a gradient at the cross prefill shape),
+   and K2's at its train shapes; ``train_launches_per_step_by_arch`` per
+   trained model; K1's also per workflow pod), the ``nvidia-smi`` line,
+   and last the ``{"ok": true, "device": ...}`` line.
 
 It needs CUDA: without a card it exits with code 2 before doing anything.
 """
@@ -214,6 +242,22 @@ SSM_TRAIN_STEPS, DENSE_REMAT_STEPS = 4, 4
 TRAIN_7_LR = 1e-4
 HYBRID_PLAIN_LAYERS = 6           # one full segment of attn_every = 6: one K1 application
 REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-6, 1e-5
+# phase 8: the moe, audio and vlm families' training. Depth cuts (full widths;
+# None: full depth): the f32 train state at 28 bytes a parameter must fit the
+# card's 80 GB, qwen2-moe-a2.7b at 2 layers ~51 GB (3: ~68), the vlm at one
+# full segment of 5 self-attention layers + 1 cross block ~61 GB (10 + 2: ~93)
+TRAIN_8_LAYERS = {"qwen2-moe-a2.7b": 2, "musicgen-medium": None, "llama-3.2-vision-11b": 5}
+TRAIN_8_STEPS = 4
+# phase 8's peak learning rates: Adam's first steps move every weight by about
+# the learning rate, which widens with d_model; llama-3.2-vision-11b (d 4096)
+# diverges at 1e-4 and 3e-5 and qwen2-moe-a2.7b (d 2048) jumps at 1e-4, with
+# the plain versions as with the kernels (scripts/probe_train_lr.py --plain)
+TRAIN_8_LR = {"qwen2-moe-a2.7b": 3e-5, "musicgen-medium": TRAIN_7_LR,
+              "llama-3.2-vision-11b": 1e-5}
+# depths of the f32 forward + backward, kernels vs plain (about 12 B a parameter)
+TRAIN_8_PLAIN_LAYERS = {"qwen2-moe-a2.7b": 2, "musicgen-medium": 8, "llama-3.2-vision-11b": 5}
+NEAR_TIE = 1e-5                   # a flipped top-k choice between probabilities this close
+K1_CROSS_TRAIN = "llama-3.2-vision-11b cross, prefill"   # K1 under a gradient at this shape
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
 # (bf16 on the tensor cores; f32 outside them).
@@ -706,31 +750,58 @@ def plain_kernels():
 
 @contextlib.contextmanager
 def record_routing(log: list):
-    """Append each MoE layer's routing to ``log``, in call order: a bool
-    (tokens, Ep) tensor, True where the token chose the expert in its
-    top-k (first row block) or was kept in its capacity (second block),
-    stacked as (2, tokens, Ep). For a comparison only."""
-    import torch
+    """Append each MoE layer's routing to ``log``, in call order: a dict of
+    its top-k choices ``idx`` (tokens, k), in rank order, the probabilities
+    ``probs`` (tokens, Ep) they were taken from, and ``kept`` (tokens, Ep),
+    True where a choice kept its place in its expert's capacity. For a
+    comparison only."""
     from repro_torch.models import moe
     top_k, route = moe.top_k, moe.route
     chosen = []
 
     def recording_top_k(probs, k):
         vals, idx = top_k(probs, k)
-        chosen.append(torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, idx, True))
+        chosen.append((idx.detach(), probs.detach()))
         return vals, idx
 
     def recording_route(logits, cfg, group):
         dispatch, combine, aux = route(logits, cfg, group)
+        idx, probs = chosen.pop()
         Ep = logits.shape[-1]
-        kept = dispatch.float().sum(-1) > 0
-        log.append(torch.stack([chosen.pop().reshape(-1, Ep), kept.reshape(-1, Ep)]))
+        log.append({"idx": idx.reshape(-1, idx.shape[-1]), "probs": probs.reshape(-1, Ep),
+                    "kept": (dispatch.detach().float().sum(-1) > 0).reshape(-1, Ep)})
         return dispatch, combine, aux
     moe.top_k, moe.route = recording_top_k, recording_route
     try:
         yield
     finally:
         moe.top_k, moe.route = top_k, route
+
+
+def routing_diff(log_a, log_b) -> dict:
+    """Two runs' routings (``record_routing`` logs of the same layers and
+    tokens) compared layer by layer.
+
+    ``differ`` (layers, tokens): the token's top-k choices or its kept
+    places differ. ``flips``: the token-layers whose top-k choices differ
+    (rank order included). ``near_ties``: those of them at which every
+    rank that differs swaps two experts whose probabilities lie within
+    ``NEAR_TIE`` of each other in both runs.
+    """
+    import torch
+    differ, flips, near_ties = [], 0, 0
+    for a, b in zip(log_a, log_b):
+        d_idx = a["idx"] != b["idx"]                               # (tokens, k)
+        close = torch.ones_like(d_idx)
+        for run in (a, b):
+            gap = (run["probs"].gather(-1, a["idx"]) - run["probs"].gather(-1, b["idx"])).abs()
+            close &= gap <= NEAR_TIE
+        flipped = d_idx.any(-1)
+        flips += int(flipped.sum())
+        near_ties += int((flipped & (close | ~d_idx).all(-1)).sum())
+        differ.append(flipped | (a["kept"] != b["kept"]).any(-1))
+    return {"differ": torch.stack(differ) if differ else None, "flips": flips,
+            "near_ties": near_ties}
 
 
 def _inputs_prefix(request, split: int) -> dict:
@@ -768,11 +839,9 @@ def consistency(cfg, *, device: str, prefill_batch: int, prefill_len: int,
         runs.append((logits, log))
     (logits, log_k), (logits_plain, log_p) = runs
     rows = torch.ones(prefill_batch, dtype=torch.bool, device=logits.device)
-    flips = 0
-    for a, b in zip(log_k, log_p):                     # one (2, tokens, Ep) per MoE layer
-        differ = (a != b).any(dim=-1)                   # (2, tokens)
-        flips += int(differ[0].sum())
-        rows &= ~differ.any(dim=0).reshape(prefill_batch, prefill_len).any(dim=1)
+    routing = routing_diff(log_k, log_p)
+    if routing["differ"] is not None:
+        rows &= ~routing["differ"].any(dim=0).reshape(prefill_batch, prefill_len).any(dim=1)
     _check(bool(rows.any()), "every request was routed differently with the plain kernels")
     err_plain = float((logits - logits_plain)[rows].abs().max())
     del logits, logits_plain, runs
@@ -794,7 +863,7 @@ def consistency(cfg, *, device: str, prefill_batch: int, prefill_len: int,
     _check(bool(torch.isfinite(full).all()), "non-finite forward logits")
     out = {"prefill_kernels_vs_plain": err_plain, "prefill_decode_vs_forward": err_decode}
     if cfg.n_experts:
-        out.update(routing_flips=flips, moe_layers=len(log_k),
+        out.update(routing_flips=routing["flips"], moe_layers=len(log_k),
                    requests_held=int(rows.sum()), requests=prefill_batch)
     return out
 
@@ -812,44 +881,65 @@ def _grads_err(got, expect, tol):
     return err, ok
 
 
-def check_k1_grad(gen) -> dict:
-    """K1 under a gradient against autograd through its plain version, and the
-    backward's time beside SDPA forward + backward."""
+def attention_bwd_bound(B, S, T, H, K, hd, dtype, causal):
+    """(bound_ms, bound_by): the least time of K1's backward on an H100.
+
+    Bytes: q, the output and its gradient (H heads) and k, v (K heads)
+    read once, dq (H heads) and dk, dv (K heads) written once. Operations:
+    the five products of ``ref.attention_bwd`` (q.k recomputed, dV, dP, dQ,
+    dK), 2 FLOPs per multiply-add each over the (query, key) pairs the
+    mask keeps, for every query head: 2.5 times the forward's.
+    """
+    import torch
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (4 * B * S * H * hd + 4 * B * T * K * hd) * itemsize
+    pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
+    flops = 10 * B * H * hd * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOP_PER_S[_dtype_name(dtype)]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_k1_grad(gen, cases) -> dict:
+    """K1 under a gradient against autograd through its plain version, at each
+    of ``cases`` ((B, S, T, H, K, hd, dtype, causal)); at the first, the
+    backward's time beside its bound and SDPA forward + backward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
-    B, S, H, hd = TRAIN_BATCH, TRAIN_LEN, 14, 64
-    main = None
-    for K in (2, H):
-        for dtype in (torch.bfloat16, torch.float32):
-            for causal in (True, False):
-                q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
-                k, v = (torch.randn((B, S, K, hd), generator=gen, device="cuda").to(dtype)
-                        for _ in range(2))
-                dout = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
-                inputs = [t.requires_grad_(True) for t in (q, k, v)]
-                before = ops.attention.launches
-                out = ops.attention(*inputs, causal=causal)
-                _check(ops.attention.launches == before + 1 and out.grad_fn is not None,
-                       "ops.attention under grad did not go through FlashAttentionFn")
-                got = torch.autograd.grad(out, inputs, dout)
-                expect = torch.autograd.grad(ref.attention_ref(*inputs, causal=causal),
-                                             inputs, dout)
-                torch.cuda.synchronize()
-                tol = K1_GRAD_TOL[_dtype_name(dtype)]
-                err, ok = _grads_err(got, expect, tol)
-                print(f"  K1 grad B={B} S={S} H={H} K={K} hd={hd} {_dtype_name(dtype)} "
-                      f"causal={causal}: dq/dk/dv max_abs_err={err:.3e} (tol {tol:g}) "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
-                _check(ok, f"K1's gradient disagrees with its plain version's: {err}")
-                if main is None:
-                    main = (q.detach(), k.detach(), v.detach(), out.detach(), dout, causal)
+    main, worst = None, 0.0
+    for B, S, T, H, K, hd, dtype, causal in cases:
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        dout = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+        inputs = [t.requires_grad_(True) for t in (q, k, v)]
+        before = ops.attention.launches
+        out = ops.attention(*inputs, causal=causal)
+        _check(ops.attention.launches == before + 1 and out.grad_fn is not None,
+               "ops.attention under grad did not go through FlashAttentionFn")
+        got = torch.autograd.grad(out, inputs, dout)
+        expect = torch.autograd.grad(ref.attention_ref(*inputs, causal=causal),
+                                     inputs, dout)
+        torch.cuda.synchronize()
+        tol = K1_GRAD_TOL[_dtype_name(dtype)]
+        err, ok = _grads_err(got, expect, tol)
+        print(f"  K1 grad B={B} S={S} T={T} H={H} K={K} hd={hd} {_dtype_name(dtype)} "
+              f"causal={causal}: dq/dk/dv max_abs_err={err:.3e} (tol {tol:g}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        _check(ok, f"K1's gradient disagrees with its plain version's: {err}")
+        if main is None:
+            main = (q.detach(), k.detach(), v.detach(), out.detach(), dout, causal)
+            worst = err
+        del inputs, out, got, expect
 
-    q, k, v, out, dout, causal = main          # bf16, causal, K = 2: the train step's
+    q, k, v, out, dout, causal = main
+    (B, S, H, hd), (T, K) = q.shape, k.shape[1:3]
     bwd_ms = time_ms(lambda: ref.attention_bwd(q, k, v, out, dout, causal=causal),
                      iters=20, warmup=3)
     fwd_ms = time_ms(lambda: ops.attention(q, k, v, causal=causal))
+    bound_ms, bound_by = attention_bwd_bound(B, S, T, H, K, hd, q.dtype, causal)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, ref.repeat_kv(k, H), ref.repeat_kv(v, H)))
     dot = dout.transpose(1, 2)
@@ -858,10 +948,14 @@ def check_k1_grad(gen) -> dict:
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         torch.autograd.grad(o, (qt, kt, vt), dot)
     sdpa_ms = time_ms(sdpa_fwd_bwd, iters=20, warmup=3)
-    print(f"  K1 at the training shape (bf16, causal, K=2): forward {fwd_ms:.4f} ms, "
-          f"backward (tensor ops) {bwd_ms:.4f} ms; SDPA forward + backward on "
-          f"full-H k/v {sdpa_ms:.4f} ms (yardstick; the port never calls it)", flush=True)
-    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "sdpa_fwd_bwd_ms": sdpa_ms}
+    print(f"  K1 under a gradient at B={B} S={S} T={T} H={H} K={K} hd={hd} "
+          f"({_dtype_name(q.dtype)}, causal={causal}): forward {fwd_ms:.4f} ms, backward "
+          f"(tensor ops) {bwd_ms:.4f} ms, its bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / bwd_ms:.1%} of it; SDPA forward + backward on full-H k/v "
+          f"{sdpa_ms:.4f} ms (yardstick; the port never calls it)", flush=True)
+    return {"shape": "B,S,T,H,K,hd=" + ",".join(map(str, (B, S, T, H, K, hd))),
+            "causal": causal, "max_abs_err": worst, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "bwd_bound_ms": bound_ms, "bwd_bound_by": bound_by, "sdpa_fwd_bwd_ms": sdpa_ms}
 
 
 def _grads_rel_err(got, expect) -> float:
@@ -954,7 +1048,7 @@ def remat_agreement(cfg, *, device: str, batch: int, seq_len: int) -> dict:
     ``"full"`` and ``"dots"``, from one state and one batch: each one's loss,
     gradient leaves, peak memory and launches."""
     import torch
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.data.pipeline import to_device
     from repro_torch.kernels import ops
     from repro_torch.models import RunConfig, build
     from repro_torch.runtime.train import value_and_grad
@@ -963,8 +1057,7 @@ def remat_agreement(cfg, *, device: str, batch: int, seq_len: int) -> dict:
     rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device=device,
                    ssd_chunk=SSD_TRAIN_CHUNK)
     params = build(cfg, rc).init(torch.Generator(device=device).manual_seed(SEED))
-    b = to_device(next(SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size,
-                                              seed=SEED))), device)
+    b = to_device(next(synthetic_data(cfg, batch, seq_len)), device)
     runs = {}
     for name, kw in (("off", {}), ("full", dict(remat=True, remat_policy="full")),
                      ("dots", dict(remat=True, remat_policy="dots"))):
@@ -1001,6 +1094,13 @@ def _tree_bytes(cfg, dtype) -> int:
                for t in tree_leaves(build(cfg, rc).init_eval_shape()))
 
 
+def _train_state_gb(cfg) -> float:
+    """GB of ``cfg``'s f32 train state at a step's peak: 28 bytes a parameter
+    (the old and the new params, m and v, and the gradients, 4 bytes each)."""
+    import torch
+    return 7 * _tree_bytes(cfg, torch.float32) / 1e9
+
+
 def _max_abs_diff(a, b) -> float:
     from repro_torch.tree import tree_leaves
     return max(float((x.float() - y.float()).abs().max())
@@ -1022,21 +1122,47 @@ def expected_train_launches(cfg, rc) -> dict:
     checkpoints runs its forward again in the backward, kernel and all
     (``SSDScanFn`` and ``FlashAttentionFn`` are no matmuls, so
     ``remat_policy="dots"`` recomputes them too); the backwards launch
-    none. The hybrid's shared block is not checkpointed, as in the JAX
-    package."""
+    none. As in the JAX package, only the layer stacks' blocks are
+    checkpointed: not the hybrid's shared block, nor the vlm's cross
+    blocks (llama-3.2-vision-11b under remat: 2 * 40 + 8)."""
     once = expected_launches(cfg)
     again = 2 if rc.remat else 1
     if cfg.family == "hybrid":
         return {"attention": once["attention"], "ssd": again * once["ssd"]}
+    if cfg.family == "vlm":
+        return {"attention": again * cfg.n_layers + cfg.n_layers // cfg.cross_attn_every,
+                "ssd": 0}
     return {k: again * n for k, n in once.items()}
+
+
+def synthetic_data(cfg, batch: int, seq_len: int):
+    """``SyntheticLM`` batches of ``cfg``'s frontend (frame embeddings for
+    audio, tokens and image embeddings for vision), seeded with SEED."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size, seed=SEED),
+                       frontend=cfg.frontend, d_model=cfg.d_model,
+                       n_img_tokens=cfg.n_img_tokens)
+
+
+def init_train_state(model):
+    """``runtime.train``'s seeded state of ``model``; a vlm's cross-block
+    gates set to ``CROSS_GATE``, as ``init_params`` does: at 0 they make
+    every cross-attention gradient exactly zero, so a wrong backward of K1
+    at the cross shape would pass."""
+    from repro_torch.runtime.train import init_sharded_state
+    state = init_sharded_state(model, None, None, SEED)
+    if "cross_blocks" in state.params:
+        state.params["cross_blocks"]["gate"].fill_(CROSS_GATE)
+    return state
 
 
 def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
           resume_after: Optional[int] = None, ckpt_dir=None, rc=None,
           lr: float = 3e-4) -> dict:
-    """``steps`` AdamW steps on ``SyntheticLM`` batches through ``runtime.train``,
-    under ``rc`` (``train_rc(device)`` when None), at peak learning rate
-    ``lr`` (2 warmup steps, then the cosine to ``steps``).
+    """``steps`` AdamW steps on ``synthetic_data`` batches through
+    ``runtime.train`` from ``init_train_state``, under ``rc``
+    (``train_rc(device)`` when None), at peak learning rate ``lr`` (2
+    warmup steps, then the cosine to ``steps``).
 
     With ``resume_after``, a checkpoint saved after that step is restored
     into a fresh (meta) state and step ``resume_after + 1`` is taken again
@@ -1045,19 +1171,18 @@ def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
     """
     import torch
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.data.pipeline import to_device
     from repro_torch.kernels import ops
     from repro_torch.optim.adamw import OptConfig
-    from repro_torch.runtime.train import (TrainRunConfig, build_train_step,
-                                           init_sharded_state)
+    from repro_torch.runtime.train import TrainRunConfig, build_train_step
     from repro_torch.tree import tree_map
 
     rc = rc or train_rc(device)
     trc = TrainRunConfig(opt=OptConfig(lr=lr, warmup_steps=2, total_steps=steps))
     step, state_meta, _, _, _, model = build_train_step(cfg, None, B=batch, S=seq_len,
                                                         rc=rc, trc=trc)
-    state = init_sharded_state(model, None, None, SEED)
-    data = SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size, seed=SEED))
+    state = init_train_state(model)
+    data = synthetic_data(cfg, batch, seq_len)
 
     _sync(device)
     if torch.device(device).type == "cuda":
@@ -1112,6 +1237,17 @@ def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
             "resume_loss_err": loss_err, "resume_params_err": params_err}
 
 
+def _leaf_errors(got: dict, expect: dict):
+    """({key: max abs error over the expected leaf's max abs value}, {key: that
+    max abs value}) over two ``tree_flatten_with_path`` gradient trees."""
+    rel, scale = {}, {}
+    for key, e in expect.items():
+        scale[key] = float(e.abs().max())
+        err = float((got[key] - e).abs().max())
+        rel[key] = err / scale[key] if scale[key] else err
+    return rel, scale
+
+
 def train_consistency(cfg, *, device: str, batch: int, seq_len: int, **rc_kw) -> dict:
     """f32 errors of one train step with the kernels against the same step with
     their plain versions, from one state and one batch, and of its gradients
@@ -1123,17 +1259,16 @@ def train_consistency(cfg, *, device: str, batch: int, seq_len: int, **rc_kw) ->
     params can differ by at most about 6e-6 whatever the gradients are.
     """
     import torch
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.data.pipeline import to_device
     from repro_torch.models import RunConfig
-    from repro_torch.runtime.train import build_train_step, init_sharded_state, value_and_grad
+    from repro_torch.runtime.train import build_train_step, value_and_grad
     from repro_torch.tree import tree_flatten_with_path
 
     rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device=device,
                    **rc_kw)
     step, *_, model = build_train_step(cfg, None, B=batch, S=seq_len, rc=rc)
-    state = init_sharded_state(model, None, None, SEED)
-    b = to_device(next(SyntheticLM(DataConfig(batch, seq_len, cfg.vocab_size,
-                                              seed=SEED))), device)
+    state = init_train_state(model)
+    b = to_device(next(synthetic_data(cfg, batch, seq_len)), device)
     new, met = step(state, b)
     grads = tree_flatten_with_path(value_and_grad(model.loss, state.params, b)[1])
     with plain_kernels():
@@ -1143,15 +1278,92 @@ def train_consistency(cfg, *, device: str, batch: int, seq_len: int, **rc_kw) ->
 
     def rel(key):
         return abs(float(met[key]) - float(met_plain[key])) / abs(float(met_plain[key]))
-    grads_rel, grads_scale = {}, {}
-    for key, e in grads_plain.items():
-        grads_scale[key] = float(e.abs().max())
-        err = float((grads[key] - e).abs().max())
-        grads_rel[key] = err / grads_scale[key] if grads_scale[key] else err
+    grads_rel, grads_scale = _leaf_errors(grads, grads_plain)
     return {"loss_rel": rel("loss"), "grad_norm_rel": rel("grad_norm"),
             "params_abs": _max_abs_diff(new.params, new_plain.params),
             "grads_rel": grads_rel, "grads_scale": grads_scale,
             "loss": float(met["loss"])}
+
+
+def grads_vs_plain(cfg, *, device: str, batch: int, seq_len: int) -> dict:
+    """f32 loss and gradients of ``Model.loss`` with the kernels against the
+    same with their plain versions, from one state (``init_params``: a
+    vlm's gates at ``CROSS_GATE``) and one ``synthetic_data`` batch; no
+    optimizer step, so about 12 bytes a parameter (params and two sets of
+    gradients). Each gradient leaf's error is taken over its plain leaf's
+    largest value. A MoE's routing is recorded in both runs
+    (``routing_diff``); the kernels' run's launches are returned."""
+    import torch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import RunConfig, build
+    from repro_torch.runtime.train import value_and_grad
+    from repro_torch.tree import tree_flatten_with_path
+
+    model = build(cfg, RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32,
+                                 device=device))
+    params = init_params(model)
+    b = to_device(next(synthetic_data(cfg, batch, seq_len)), device)
+    runs = []
+    for plain in (False, True):
+        log = []
+        ops.attention.launches = ops.ssd.launches = 0
+        with record_routing(log), (plain_kernels() if plain else contextlib.nullcontext()):
+            loss, grads = value_and_grad(model.loss, params, b)
+        runs.append((float(loss), tree_flatten_with_path(grads), log, _launches()))
+        del grads
+    (loss, grads, log_k, launches), (loss_p, grads_p, log_p, _) = runs
+    grads_rel, grads_scale = _leaf_errors(grads, grads_p)
+    out = {"loss": loss, "loss_rel": abs(loss - loss_p) / abs(loss_p),
+           "grads_rel": grads_rel, "grads_scale": grads_scale, "launches": launches}
+    if cfg.n_experts:
+        routing = routing_diff(log_k, log_p)
+        out.update(routing_flips=routing["flips"], near_ties=routing["near_ties"],
+                   token_layers=sum(int(entry["idx"].shape[0]) for entry in log_k))
+    return out
+
+
+def train_and_check(phase: str, cfg, label: str, *, steps: int, rc,
+                    lr: float = TRAIN_7_LR) -> dict:
+    """``train`` ``cfg`` (8 x 512 tokens a step, peak learning rate ``lr``)
+    under ``rc``; print each step and the run, and check a finite, falling
+    loss and ``expected_train_launches`` every step. Returns the launches a
+    step."""
+    import torch
+    tr = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=steps,
+               rc=rc, lr=lr)
+    for i, (met, ms, la) in enumerate(zip(tr["metrics"], tr["step_ms"],
+                                          tr["launches_per_step"]), 1):
+        print(f"{phase} {label} train step {i}: loss {met['loss']:.6f} grad_norm "
+              f"{met['grad_norm']:.6f} lr {met['lr']:.6e}, {ms:.3f} ms, launches {la}",
+              flush=True)
+    print(f"{phase} {label}, remat \"{rc.remat_policy if rc.remat else 'off'}\", ssd_chunk "
+          f"{rc.ssd_chunk}, peak lr {lr:g}: {steps} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_LEN} tokens: median step (2-{steps}) {tr['median_step_ms']:.3f} ms, "
+          f"{tr['tokens_per_s']:.1f} trained tokens/s, max_memory_allocated "
+          f"{tr['max_memory_allocated']} B", flush=True)
+    losses = [m["loss"] for m in tr["metrics"]]
+    _check(all(np.isfinite(losses)) and all(np.isfinite([m["grad_norm"]
+                                                          for m in tr["metrics"]])),
+           f"{label}: non-finite loss or grad norm")
+    _check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
+    per_step = expected_train_launches(cfg, rc)
+    _check(all(la == per_step for la in tr["launches_per_step"]),
+           f"{label} train steps launched {tr['launches_per_step']}, not {per_step} each")
+    del tr
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def cut_depth(arch: str, layers: Optional[int]):
+    """(``arch``'s config cut to ``layers`` at full widths, or at full depth
+    when None; its label)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg, arch
+    return (dataclasses.replace(cfg, n_layers=layers),
+            f"{arch} ({layers} of {cfg.n_layers} layers)")
 
 
 # ---------------------------------------------------------------------------
@@ -1272,6 +1484,64 @@ def matmul_diamond(*, device: str, n: int, iters: int) -> dict:
             "order_consistent": res.metrics.order_consistent(wf.with_instance(0))}
 
 
+def train_moe_audio_vlm(rc, t_phase: float):
+    """Phase 8: K1 under a gradient at the vlm's cross-attention shape; the
+    moe, audio and vlm families' train steps at ``TRAIN_8_LAYERS`` under
+    ``rc``; their f32 gradients, kernels vs plain, at
+    ``TRAIN_8_PLAIN_LAYERS``. Returns (K1's numbers at the cross shape
+    under a gradient, the launches a step of each trained model)."""
+    import torch
+    from repro_torch.configs import get_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("[8] (a) K1 under a gradient at the vlm's cross-attention shape", flush=True)
+    k1_cross_grad = check_k1_grad(torch.Generator(device="cuda").manual_seed(SEED), [
+        K1_CROSS_SHAPES[K1_CROSS_TRAIN] + (dtype, False) for dtype in (bf16, f32)])
+    torch.cuda.empty_cache()
+    t_phase = _phase_done(8, t_phase, "(a)")
+    trained = {}
+    for part, (arch, layers) in zip("bcd", TRAIN_8_LAYERS.items()):
+        cfg, label = cut_depth(arch, layers)
+        if layers is not None:
+            print(f"[8] ({part}) {arch} cut to {layers} layers (full widths): its f32 train "
+                  f"state at full depth, at 28 bytes a parameter, would be "
+                  f"{_train_state_gb(get_config(arch)):.1f} GB; cut, "
+                  f"{_train_state_gb(cfg):.1f} GB", flush=True)
+        trained[label] = train_and_check(f"[8] ({part})", cfg, label,
+                                         steps=TRAIN_8_STEPS, rc=rc, lr=TRAIN_8_LR[arch])
+        t_phase = _phase_done(8, t_phase, f"({part}) {arch}")
+    for part, (arch, layers) in zip("efg", TRAIN_8_PLAIN_LAYERS.items()):
+        cfg, label = cut_depth(arch, layers)
+        errs = grads_vs_plain(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN)
+        held = errs["grads_rel"]
+        if cfg.n_experts:
+            print(f"[8] ({part}) {label}: {errs['routing_flips']} of {errs['token_layers']} "
+                  f"f32 token-layers routed differently by the kernels than by their plain "
+                  f"versions, {errs['near_ties']} of them near-ties (probabilities within "
+                  f"{NEAR_TIE:g})", flush=True)
+            _check(errs["near_ties"] == errs["routing_flips"],
+                   f"{label}: {errs['routing_flips'] - errs['near_ties']} routing flips "
+                   f"that are no near-tie")
+            if errs["routing_flips"]:
+                held = {k: e for k, e in held.items() if not k.startswith("blocks/moe/")}
+        print(f"[8] ({part}) {label}: f32 forward + backward, kernels vs plain: "
+              f"{json.dumps(errs)}", flush=True)
+        _check(errs["loss_rel"] <= TRAIN_PLAIN_TOL and max(held.values()) <= TRAIN_PLAIN_TOL,
+               f"{label}: f32 gradients, kernels vs plain, exceed {TRAIN_PLAIN_TOL}: {errs}")
+        _check(errs["launches"] == expected_launches(cfg),
+               f"{label}: the forward + backward launched {errs['launches']}")
+        nonzero = [f"blocks/attn/{w}" for w in ("wq", "wk", "wv")]
+        if cfg.n_experts:
+            nonzero += [f"blocks/moe/{w}" for w in ("router", "w1", "w2", "w3")]
+        if cfg.family == "vlm":
+            nonzero += [f"cross_blocks/{w}" for w in ("attn/wq", "attn/wk", "attn/wv",
+                                                      "gate")]
+        _check(all(errs["grads_scale"][key] > 0 for key in nonzero),
+               f"{label}: a zero gradient among {nonzero}: {errs['grads_scale']}")
+        torch.cuda.empty_cache()
+        t_phase = _phase_done(8, t_phase, f"({part}) {arch}")
+    return k1_cross_grad, trained
+
+
 # ---------------------------------------------------------------------------
 def _phase_done(n: int, t0: float, what: str = "") -> float:
     """Print phase ``n``'s seconds since ``t0``; return the time now."""
@@ -1352,9 +1622,9 @@ def main() -> int:
                            seq_len=96, split=32)
         print(f"[4] {arch}{cut}: f32 consistency: {json.dumps(errs)}", flush=True)
         if cfg.n_experts:
-            print(f"[4] {arch}: {errs['routing_flips']} top-k choices of "
-                  f"{SERVE_BATCH * PROMPT_LEN} tokens x {errs['moe_layers']} layers differ "
-                  f"between the kernels and their plain versions; the prefill bound is held "
+            print(f"[4] {arch}: {errs['routing_flips']} of {SERVE_BATCH * PROMPT_LEN} "
+                  f"tokens x {errs['moe_layers']} layers take other top-k choices "
+                  f"with the kernels than with their plain versions; the prefill bound is held "
                   f"on the {errs['requests_held']} of {errs['requests']} requests routed alike "
                   f"throughout; decode vs forward at capacity_factor {DECODE_MOE_CAPACITY:g} "
                   f"(drop-free: capacity drops depend on the batch)", flush=True)
@@ -1369,7 +1639,10 @@ def main() -> int:
 
     # 5. training: K1 under a gradient, full-width steps, resume, f32 kernels vs plain
     print("[5] K1 under a gradient against its plain version's autograd", flush=True)
-    k1_grad = check_k1_grad(torch.Generator(device="cuda").manual_seed(SEED))
+    bf16, f32 = torch.bfloat16, torch.float32
+    k1_grad = check_k1_grad(torch.Generator(device="cuda").manual_seed(SEED), [
+        (TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, 14, K, 64, dtype, causal)   # qwen2-0.5b's
+        for K in (2, 14) for dtype in (bf16, f32) for causal in (True, False)])
     cfg = get_config(ARCH)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         res = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
@@ -1499,34 +1772,9 @@ def main() -> int:
     for part, arch, layers, steps in (("b", HYBRID_ARCH, None, TRAIN_STEPS),
                                       ("c", SSM_ARCH, SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS),
                                       ("d", DENSE_REMAT_ARCH, None, DENSE_REMAT_STEPS)):
-        cfg = get_config(arch)
-        label = arch
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
-            label = f"{arch} ({layers} of {get_config(arch).n_layers} layers)"
-        tr = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=steps,
-                   rc=remat_rc, lr=TRAIN_7_LR)
-        for i, (met, ms, la) in enumerate(zip(tr["metrics"], tr["step_ms"],
-                                              tr["launches_per_step"]), 1):
-            print(f"[7] ({part}) {label} train step {i}: loss {met['loss']:.6f} grad_norm "
-                  f"{met['grad_norm']:.6f} lr {met['lr']:.6e}, {ms:.3f} ms, launches {la}",
-                  flush=True)
-        print(f"[7] ({part}) {label}, remat \"full\", ssd_chunk {SSD_TRAIN_CHUNK}, peak lr "
-              f"{TRAIN_7_LR:g}: {steps} "
-              f"steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens: median step (2-{steps}) "
-              f"{tr['median_step_ms']:.3f} ms, {tr['tokens_per_s']:.1f} trained tokens/s, "
-              f"max_memory_allocated {tr['max_memory_allocated']} B", flush=True)
-        losses = [m["loss"] for m in tr["metrics"]]
-        _check(all(np.isfinite(losses)) and all(np.isfinite([m["grad_norm"]
-                                                              for m in tr["metrics"]])),
-               f"{label}: non-finite loss or grad norm")
-        _check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
-        per_step = expected_train_launches(cfg, remat_rc)
-        _check(all(la == per_step for la in tr["launches_per_step"]),
-               f"{label} train steps launched {tr['launches_per_step']}, not {per_step} each")
-        train_launches[label] = per_step
-        del tr
-        torch.cuda.empty_cache()
+        cfg, label = cut_depth(arch, layers)
+        train_launches[label] = train_and_check(f"[7] ({part})", cfg, label, steps=steps,
+                                                rc=remat_rc)
         t_phase = _phase_done(7, t_phase, f"({part}) {arch}")
 
     cut = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_PLAIN_LAYERS)
@@ -1553,9 +1801,13 @@ def main() -> int:
                    cut, remat_rc.replace(remat=policy != "off")),
                f"remat {policy} launched {run['launches']}")
     torch.cuda.empty_cache()
-    _phase_done(7, t_phase, "(e, f)")
+    t_phase = _phase_done(7, t_phase, "(e, f)")
 
-    # 8. results; the ok line is last
+    # 8. the moe, audio and vlm families' training
+    k1_cross_grad, trained = train_moe_audio_vlm(remat_rc, t_phase)
+    train_launches.update(trained)
+
+    # 9. results; the ok line is last
     # launches: the sum over the served models' timed prefills (each counted
     # from 0), and per model
     for entry, kernel in ((k1, "attention"), (k2, "ssd")):
@@ -1570,6 +1822,7 @@ def main() -> int:
             arch: n[kernel] for arch, n in train_launches.items() if n[kernel]}
     k2["at"].update(k2_train)
     k1.update({f"train_{key}": val for key, val in k1_grad.items()})
+    k1["at"][f"{K1_CROSS_TRAIN}, under a gradient"] = k1_cross_grad
     k1["workflow_serve_launches_by_pod"] = serve_pod_launches
     k1["workflow_train_launches_per_step"] = tw["step_k1_launches"][0]
     k1["workflow_eval_launches"] = tw["pod_k1_launches"]["eval"][0]

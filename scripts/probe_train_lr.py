@@ -7,8 +7,9 @@ with the kernels and with their plain versions, on one CUDA card.
 
 Each run is ``chip_smoke.train`` (f32 params, bf16 compute,
 ``RunConfig(remat=True, remat_policy="full", ssd_chunk=32)``, the seeded
-state and ``SyntheticLM`` batches of 8 x 512 tokens, 2 warmup steps then
-the cosine) from the same seed; with ``--plain`` each learning rate is
+state of ``chip_smoke.init_train_state`` and ``chip_smoke.synthetic_data``
+batches of 8 x 512 positions with the arch's frontend inputs, 2 warmup
+steps then the cosine) from the same seed; with ``--plain`` each learning rate is
 run a second time under ``chip_smoke.plain_kernels()``, so a loss that
 jumps in both runs is the optimizer's doing at that learning rate, not a
 kernel's. Prints one JSON line a run: the losses, grad norms, median

@@ -6,9 +6,11 @@
 Builds the full-width model (qwen2-0.5b unless ``--arch`` names another
 of the port's configs; full depth unless ``--layers`` cuts it) with f32
 params and bf16 compute, ``RunConfig(remat=..., ssd_chunk=32)`` (remat
-off by default; chip_smoke.py phase 7 trains the ssm and hybrid
-families under "full"), with the seeded state and the ``SyntheticLM``
-batches of ``chip_smoke.py`` (8 x 512 tokens), warms up with two steps,
+off by default; chip_smoke.py phases 7 and 8 train under "full"), with
+the seeded state of ``chip_smoke.init_train_state`` (a vlm's gates at
+``CROSS_GATE``) and the batches of ``chip_smoke.synthetic_data`` (8 x
+512 positions; frame embeddings for audio, tokens and image embeddings
+for vision), warms up with two steps,
 then traces three windows with ``torch.profiler``: the forward and
 backward (``runtime.train.value_and_grad``), the AdamW update
 (``optim.adamw.apply_updates``) and a whole step. For each window it
@@ -20,7 +22,13 @@ shows there as bf16 fills and adds of full-size stacked gradients),
 and the device time inside each kernel's tensor-op backward
 (``SSDScanFnBackward``: ``ssd_chunked`` recomputed and its autograd;
 ``FlashAttentionFnBackward``: ``ref.attention_bwd``), a layer and its
-share of the window. Then three unprofiled steps.
+share of the window. Every window runs with ``profile_serve.moe_ranges``,
+so a MoE's forward and backward window also splits out, under the
+gradient, its routing (``moe.route``) and its dispatch + combine products
+(the first and last einsum of each ``moe.apply_moe``): the device ms of
+the ranges' own kernels (the forward, and under remat its recompute) and
+of the backward nodes those ops recorded (matched by sequence number).
+Then three unprofiled steps.
 """
 from __future__ import annotations
 
@@ -66,6 +74,34 @@ def kernel_backwards(prof, busy_ms: float) -> None:
                           "share_of_busy": us / 1e3 / busy_ms}))
 
 
+def moe_under_grad(prof) -> dict:
+    """Device ms of the MoE's routing and of its dispatch + combine products,
+    forward (the ranges' kernels, the remat recompute included) and
+    backward (the kernels of the autograd nodes recorded by the ops inside
+    those ranges, matched by forward thread and sequence number)."""
+    from torch.autograd import DeviceType
+    from profile_serve import _descendants, _kernel_ms
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    parts = {"route": [], "dispatch_combine": []}
+    for e in events:
+        if e.name == "moe.route":
+            parts["route"].append(e)
+        elif e.name == "moe.apply_moe":
+            einsums = sorted((c for c in _descendants(e) if c.name == "aten::einsum"),
+                             key=lambda c: c.time_range.start)
+            parts["dispatch_combine"] += einsums[:1] + einsums[-1:]
+    backward = [e for e in events
+                if e.name.startswith("autograd::engine::evaluate_function")]
+    out = {}
+    for name, roots in parts.items():
+        seqs = {(d.thread, d.sequence_nr) for r in roots for d in (r, *_descendants(r))
+                if d.sequence_nr >= 0}
+        out[f"moe_{name}_fwd_ms"] = sum(_kernel_ms(r) for r in roots)
+        out[f"moe_{name}_bwd_ms"] = sum(_kernel_ms(e) for e in backward
+                                        if (e.fwd_thread, e.sequence_nr) in seqs)
+    return out
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -79,13 +115,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import SEED, SSD_TRAIN_CHUNK, TRAIN_BATCH, TRAIN_LEN, train_rc
-    from profile_serve import busy_us, report
+    from chip_smoke import (SSD_TRAIN_CHUNK, TRAIN_BATCH, TRAIN_LEN, init_train_state,
+                            synthetic_data, train_rc)
+    from profile_serve import busy_us, moe_ranges, report
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.data.pipeline import to_device
     from repro_torch.optim.adamw import OptConfig, apply_updates
-    from repro_torch.runtime.train import (TrainRunConfig, build_train_step,
-                                           init_sharded_state, value_and_grad)
+    from repro_torch.runtime.train import TrainRunConfig, build_train_step, value_and_grad
 
     cfg = get_config(args.arch)
     if args.layers:
@@ -94,8 +130,8 @@ def main() -> int:
     rc = train_rc("cuda", ssd_chunk=SSD_TRAIN_CHUNK, **remat)
     trc = TrainRunConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=8))
     step, *_, model = build_train_step(cfg, None, B=TRAIN_BATCH, S=TRAIN_LEN, rc=rc, trc=trc)
-    state = init_sharded_state(model, None, None, SEED)
-    data = SyntheticLM(DataConfig(TRAIN_BATCH, TRAIN_LEN, cfg.vocab_size, seed=SEED))
+    state = init_train_state(model)
+    data = synthetic_data(cfg, TRAIN_BATCH, TRAIN_LEN)
     batches = [to_device(next(data), "cuda") for _ in range(6)]
     for b in batches[:2]:                     # warm-up at the measured shapes
         state, _ = step(state, b)
@@ -106,7 +142,7 @@ def main() -> int:
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def window(name, fn):
-        with profile(activities=acts) as prof:
+        with moe_ranges(), profile(activities=acts) as prof:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
@@ -117,6 +153,8 @@ def main() -> int:
     prof, (_, grads) = window("forward_backward",
                               lambda: value_and_grad(model.loss, state.params, batches[2]))
     top_ops(prof)
+    if cfg.n_experts:
+        print(json.dumps(moe_under_grad(prof)))
     from torch.autograd import DeviceType
     kernel_backwards(prof, busy_us([e for e in prof.events()
                                     if e.device_type == DeviceType.CUDA]) / 1e3)

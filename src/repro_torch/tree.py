@@ -8,6 +8,11 @@ joined with ``/`` (a ``TrainState`` gives ``.params/blocks/ln1``,
 ``.m/embed``, ``.step``). The leaf order and these keys are defined
 here only; the checkpointer writes the keys, so its files line up with
 the JAX package's.
+
+The walks are module-level functions, not closures that call themselves:
+such a closure is a reference cycle, which would keep every leaf it saw
+(a whole train state and its gradients) alive until Python's cyclic
+collector happened to run.
 """
 from __future__ import annotations
 
@@ -37,33 +42,37 @@ def _join(path: str, part: str) -> str:
     return f"{path}/{part}" if path else part
 
 
+def _walk(t, path: str, is_leaf: IsLeaf, out: Dict[str, Any]) -> None:
+    kids = _children(t, is_leaf)
+    if kids is None:
+        out[path] = t
+        return
+    for part, sub in kids:
+        _walk(sub, _join(path, part), is_leaf, out)
+
+
 def tree_flatten_with_path(tree, is_leaf: IsLeaf = None) -> Dict[str, Any]:
     """{path key: leaf}, in leaf order."""
     out: Dict[str, Any] = {}
-
-    def walk(t, path):
-        kids = _children(t, is_leaf)
-        if kids is None:
-            out[path] = t
-            return
-        for part, sub in kids:
-            walk(sub, _join(path, part))
-    walk(tree, "")
+    _walk(tree, "", is_leaf, out)
     return out
+
+
+def _build(t, path: str, values: Dict[str, Any], is_leaf: IsLeaf):
+    if _children(t, is_leaf) is None:
+        return values[path]
+    if isinstance(t, dict):
+        return {k: _build(v, _join(path, str(k)), values, is_leaf) for k, v in t.items()}
+    if _is_namedtuple(t):
+        return type(t)(*(_build(getattr(t, f), _join(path, f".{f}"), values, is_leaf)
+                         for f in t._fields))
+    return type(t)(_build(v, _join(path, str(i)), values, is_leaf) for i, v in enumerate(t))
 
 
 def tree_rebuild(tree, values: Dict[str, Any], is_leaf: IsLeaf = None):
     """``tree``'s structure with the leaf at each path key replaced by
     ``values[key]`` (a KeyError names a key ``values`` lacks)."""
-    def build(t, path):
-        if _children(t, is_leaf) is None:
-            return values[path]
-        if isinstance(t, dict):
-            return {k: build(v, _join(path, str(k))) for k, v in t.items()}
-        if _is_namedtuple(t):
-            return type(t)(*(build(getattr(t, f), _join(path, f".{f}")) for f in t._fields))
-        return type(t)(build(v, _join(path, str(i))) for i, v in enumerate(t))
-    return build(tree, "")
+    return _build(tree, "", values, is_leaf)
 
 
 def tree_leaves(tree, is_leaf: IsLeaf = None) -> List[Any]:

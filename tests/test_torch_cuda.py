@@ -37,6 +37,14 @@ vlm's two cross-attention shapes (B=8, T=1601 image keys, H=32 over
 K=8, hd 128, not causal; S=512 and S=1). A Mamba2 layer under
 ``RunConfig(ssd_chunk=256)`` (above K2's 128) runs K2 at the largest
 chunk it takes and agrees with the CPU's scan at 256.
+
+Training of the moe, audio and vlm families: one f32 step of the
+reduced qwen2-moe-a2.7b, musicgen-medium and llama-3.2-vision-11b
+(gates 0.5) on the card against the CPU's, remat off and "full", with
+K1's launches a step as ``chip_smoke.expected_train_launches`` counts
+them (the vlm's cross blocks once, its rematted self-attention layers
+twice), and ``FlashAttentionFn``'s gradients at a ragged non-causal
+cross-like shape (S=100, T=333, H=32 over K=8, hd 128).
 """
 import dataclasses
 
@@ -350,7 +358,8 @@ def test_reduced_mamba2_decode_matches_forward_on_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T,H,K,hd", [(2, 200, 200, 14, 2, 64), (2, 128, 128, 4, 4, 32),
                                           (1, 77, 130, 4, 1, 128), (2, 64, 64, 14, 14, 64),
-                                          (1, 77, 130, 8, 2, 256), (2, 64, 64, 4, 4, 256)])
+                                          (1, 77, 130, 8, 2, 256), (2, 64, 64, 4, 4, 256),
+                                          (2, 100, 333, 32, 8, 128)])   # the vlm's cross
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_fn_grads_match_plain(card, B, S, T, H, K, hd, dtype, causal):
@@ -500,6 +509,79 @@ def test_reduced_zamba2_train_step_on_card_matches_cpu(card, remat):
     n_ssd = cfg.n_layers * (1 if remat == "off" else 2)
     assert {"attention": ops.attention.launches - before["attention"],
             "ssd": ops.ssd.launches - before["ssd"]} == {"attention": 2, "ssd": n_ssd}
+    for key in ("loss", "grad_norm", "lr"):
+        assert float(met_card[key]) == pytest.approx(float(met_cpu[key]), rel=1e-4), key
+    for a, b in zip(tree_leaves(new_card), tree_leaves(new_cpu)):
+        torch.testing.assert_close(a.cpu().float(), b.float(), atol=1e-4, rtol=0)
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _frontend_batch(cfg, B, S, seed):
+    """A train batch of ``cfg``'s frontend on the CPU: labels, and tokens,
+    frame embeddings (audio) or tokens and image embeddings (vision)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"labels": torch.from_numpy(np.ascontiguousarray(toks[:, 1:]))}
+    if cfg.frontend == "audio":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))
+                                           .astype(np.float32))
+    else:
+        batch["tokens"] = torch.from_numpy(np.ascontiguousarray(toks[:, :-1]))
+    if cfg.frontend == "vision":
+        batch["img_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.n_img_tokens, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["off", "full"])
+@pytest.mark.parametrize("arch,launches", [
+    ("qwen2-moe-a2.7b", {"off": 4, "full": 8}),
+    ("musicgen-medium", {"off": 4, "full": 8}),
+    # 4 self-attention layers (rematted: twice) and 2 cross blocks (never
+    # rematted: once), so 2 * 4 + 2 = 10, not 2 * (4 + 2)
+    ("llama-3.2-vision-11b", {"off": 6, "full": 10}),
+])
+def test_reduced_moe_audio_vlm_train_step_on_card_matches_cpu(card, arch, launches, remat):
+    """One f32 step of the reduced moe, audio and vlm models (the vlm's gates
+    at 0.5) from one state and one batch, on the card and on the CPU: every
+    gradient leaf within 1e-4 of its largest value; loss, grad norm rel
+    1e-4; params, m and v 1e-4 (peak lr 1e-4). K1 launches a step as
+    ``chip_smoke.expected_train_launches`` counts them."""
+    cfg = get_config(arch).reduced()
+    flags = {} if remat == "off" else dict(remat=True, remat_policy="full")
+    rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device="cpu",
+                   **flags)
+    trc = TrainRunConfig(opt=OptConfig(lr=1e-4, warmup_steps=1, total_steps=10))
+    step_cpu, *_, model = build_train_step(cfg, None, B=2, S=32, rc=rc, trc=trc)
+    step_card, *_, model_card = build_train_step(cfg, None, B=2, S=32,
+                                                 rc=rc.replace(device="cuda"), trc=trc)
+    state = init_sharded_state(model, None, None, seed=0)
+    if "cross_blocks" in state.params:
+        state.params["cross_blocks"]["gate"].fill_(0.5)
+    batch = _frontend_batch(cfg, 2, 32, seed=0)
+    on_card = tree_map(lambda t: t.to(card), state)
+    card_batch = {k: v.to(card) for k, v in batch.items()}
+    _, g_cpu = value_and_grad(model.loss, state.params, batch)
+    _, g_card = value_and_grad(model_card.loss, on_card.params, card_batch)
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        scale = float(b.abs().max()) or 1.0
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+    new_cpu, met_cpu = step_cpu(state, batch)
+    before = ops.attention.launches
+    new_card, met_card = step_card(on_card, card_batch)
+    torch.cuda.synchronize()
+    assert ops.attention.launches - before == launches[remat] == \
+        _chip_smoke().expected_train_launches(cfg, rc)["attention"]
     for key in ("loss", "grad_norm", "lr"):
         assert float(met_card[key]) == pytest.approx(float(met_cpu[key]), rel=1e-4), key
     for a, b in zip(tree_leaves(new_card), tree_leaves(new_cpu)):

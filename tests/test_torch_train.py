@@ -231,6 +231,32 @@ def test_tree_paths_cover_namedtuples_sequences_and_is_leaf():
         "a": -1, "b": -2}
 
 
+def test_tree_walks_and_a_train_step_hold_no_reference_cycle():
+    """With Python's cyclic collector off, a train state's leaves are freed as
+    soon as the last reference to the state goes: neither the tree walks nor
+    the step leave a cycle behind (a self-calling closure in the walks once
+    held every leaf it saw, a whole state and its gradients, until the
+    collector happened to run, which ran a card out of memory)."""
+    import gc
+    import weakref
+    _, tm = _models()
+    step = ttrain.make_train_step(tm, ttrain.TrainRunConfig(opt=ta.OptConfig(**OPT)))
+    gc.collect()
+    gc.disable()
+    try:
+        state = ttrain.init_sharded_state(tm, seed=0)
+        refs = [weakref.ref(t) for t in tree_leaves(state)]
+        new, _ = step(state, _torch_batch(_batch()))
+        tree_map(lambda t: t + 1, tree_unflatten(state, tree_leaves(state)))
+        del state
+        assert all(r() is None for r in refs)
+        refs = [weakref.ref(t) for t in tree_leaves(new)]
+        del new
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 # ---------------------------------------------------------------------------
 # int8 compression
 # ---------------------------------------------------------------------------
