@@ -14,12 +14,14 @@ Phases; any failure exits non-zero and prints no result line:
    not, bf16 and f32), qwen2-1.5b (H=12 over K=2, hd=128),
    zamba2-1.2b's shared block (H=K=32, hd=64),
    gemma-7b (H=K=16, hd=256; causal and not, bf16 and f32),
-   qwen2-moe-a2.7b (H=K=16, hd=128), musicgen-medium (H=K=24, hd=64)
-   and llama-3.2-vision-11b (H=32 over K=8, hd=128), and the vlm's
+   qwen2-moe-a2.7b (H=K=16, hd=128), musicgen-medium (H=K=24, hd=64),
+   llama-3.2-vision-11b (H=32 over K=8, hd=128), deepseek-67b (H=64
+   over K=8: GQA group 8) and llama4-scout-17b-a16e (H=40 over K=8:
+   group 5, hd=128), and the vlm's
    cross-attention (not causal over T=1601 image keys, at S=512 in the
    prefill and S=1 in each decode step); at K = H
    and K = 1, at a ragged S and T (also at hd 256 with GQA) and at
-   head_dim 32 and 128. Each of the seven prefill shapes and the two
+   head_dim 32 and 128. Each of the nine prefill shapes and the two
    cross shapes is timed with
    CUDA events beside the plain version, PyTorch's
    ``scaled_dot_product_attention`` on the full-H (``repeat_kv``) k/v
@@ -40,7 +42,10 @@ Phases; any failure exits non-zero and prints no result line:
    top-4, padded to 64, and 4 shared), musicgen-medium (frame
    embeddings in place of tokens) and llama-3.2-vision-11b (a gated
    cross-attention block over 1601 image tokens after every 5th layer,
-   its gates set to ``CROSS_GATE``), each at full depth, in bf16 with
+   its gates set to ``CROSS_GATE``), each at full depth, and
+   deepseek-67b and llama4-scout-17b-a16e (16 routed experts top-1 and a
+   shared one) cut to 40 of 95 and 12 of 48 layers (``SERVE_LAYERS``:
+   58.7 and 57.0 GB of bf16 params), in bf16 with
    seeded random weights, built through ``runtime.serve``, each
    answering 8 requests of 512-token prompts (``make_request``: tokens;
    for audio seeded frames, one more per decode step; for vision tokens
@@ -52,9 +57,10 @@ Phases; any failure exits non-zero and prints no result line:
    each decode step ``expected_decode_launches(cfg)`` (K1 once per
    cross block, else neither).
 4. Consistency in f32 with TF32 off, for each model at full width (and
-   full depth, but gemma-7b and qwen2-moe-a2.7b cut to 4 layers and
-   llama-3.2-vision-11b to 10, two cross blocks: their f32 params alone
-   are 34.2, 60.6 and 40.4 GB): prefill logits with the kernels against
+   full depth, but gemma-7b, qwen2-moe-a2.7b and deepseek-67b cut to 4
+   layers, llama4-scout-17b-a16e to 2 and llama-3.2-vision-11b to 10,
+   two cross blocks: their f32 params at full depth are 34.2, 60.6,
+   269.7, 431.1 and 40.4 GB): prefill logits with the kernels against
    the same prefill with their plain versions (for the MoE on the
    requests routed alike in both, the count of differing top-k choices
    printed), and prefill(inputs[:k]) + decode(inputs[k:]) against
@@ -93,9 +99,21 @@ Phases; any failure exits non-zero and prints no result line:
    batches, data_prep, 3 phases of 2 steps with a pod failure on
    phase_2 and a retry that resumes from the checkpoint, then eval
    (one retry, a falling loss, a finite eval loss, 24 K1 launches a
-   step and in the eval forward, the order consistent). Last, a diamond
+   step and in the eval forward, the order consistent). Then a diamond
    of four ``matmul_payload(n=8192, iters=4)`` pods, their seconds
-   beside the f32-peak bound.
+   beside the f32-peak bound. The host-only twins of
+   ``examples/quickstart.py`` and ``examples/multi_workflow.py`` run in
+   this process (their order-consistency lines and ``OK`` checked, no
+   launch, no card memory). Last, a 2-shard ``ShardedControlPlane``
+   (``core/shard.py``), one diamond of those pods per tenant
+   (``SHARD_TENANTS``, one a shard): inline (``processes=False``) with
+   ``payload_mode="real"`` every workflow completes in order, each
+   shard's pods allocate their matrices on the card and write the
+   unsharded diamond's output bit for bit; the plane with virtual
+   payloads in forked workers (``processes=True``) merges to the inline
+   run's tenant summary; and forked workers given the card's payloads
+   fail as a ``ShardFailure`` naming CUDA within ``SHARD_TIMEOUT_S``: a
+   child forked after the parent initialised CUDA cannot use it.
 7. Train the ssm and hybrid families, and remat, each part with the
    counts set to 0 first. (a) K2 under a gradient (``SSDScanFn``: K2
    forward, the autograd of ``ssd_chunked`` as backward) at the train
@@ -155,11 +173,26 @@ Phases; any failure exits non-zero and prints no result line:
    flipped choice whose two candidates' probabilities lie within
    ``NEAR_TIE`` of each other is a near-tie, counted, and the bound then
    holds on the leaves outside ``blocks/moe``; any other flip fails.
-9. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
+9. Train gemma-7b (GeGLU, scaled and tied embeddings, hd 256), each
+   part with the counts set to 0 first. (a) K1 under a gradient at its
+   shape (B=8, S=512, H=K=16, hd 256, causal; bf16 and f32) against
+   autograd through the plain version (``K1_GRAD_TOL``), the backward's
+   ms beside its bound and SDPA forward + backward. (b) 4 AdamW steps at
+   full width cut to 4 of its 28 layers (53.0 GB of f32 train state at
+   28 bytes a parameter; 5 layers would be 60.8 GB beside the tied
+   256,000-row embedding's logits and gradient), under phase 7's
+   settings at peak lr ``TRAIN_9_LR``: a falling, finite loss and 8 K1
+   launches a step; its median step ms, trained tokens/s and peak
+   memory. (c) f32 forward + backward at 2 layers, kernels vs plain:
+   loss and every gradient leaf (the tied ``embed`` one leaf) within
+   ``TRAIN_PLAIN_TOL``, the attention, GeGLU and embedding leaves
+   non-zero.
+10. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the served models' prefills, ``launches_by_arch`` per model,
    ``decode_launches_per_step_by_arch`` where a decode step launches it,
    ``at`` its numbers at each model's prefill shape (K1's also at the
-   vlm's cross shapes, and under a gradient at the cross prefill shape),
+   vlm's cross shapes, and under a gradient at the cross prefill shape
+   and at gemma-7b's),
    and K2's at its train shapes; ``train_launches_per_step_by_arch`` per
    trained model; K1's also per workflow pod), the ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line.
@@ -171,6 +204,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -188,10 +222,20 @@ SEED = 0
 ARCH = "qwen2-0.5b"               # the trained model, and K1's first timed shape
 SSM_ARCH = "mamba2-2.7b"          # K2's first timed shape
 SERVE_ARCHS = ("qwen2-0.5b", "qwen2-1.5b", "mamba2-2.7b", "zamba2-1.2b", "gemma-7b",
-               "qwen2-moe-a2.7b", "musicgen-medium", "llama-3.2-vision-11b")
+               "qwen2-moe-a2.7b", "musicgen-medium", "llama-3.2-vision-11b",
+               "deepseek-67b", "llama4-scout-17b-a16e")
+# depth cuts of phase 3 (full widths; the others serve at full depth): the
+# bf16 params must fit the card's 80 GB beside the stacking of the largest
+# leaf at init. deepseek-67b: 0.692 B a layer + 1.678 B of untied embedding
+# and head, 58.7 GB at 40 of 95 layers (134.9 GB at full depth);
+# llama4-scout-17b-a16e: 2.202 B a layer (16 experts) + 2.069 B, 57.0 GB at
+# 12 of 48 layers (215.6 GB)
+SERVE_LAYERS = {"deepseek-67b": 40, "llama4-scout-17b-a16e": 12}
 # depth cuts of phase 4 (full widths): the f32 params at full depth are too
-# large (gemma-7b 34 GB, qwen2-moe-a2.7b 60.6 GB); the vlm keeps two cross blocks
-CONSISTENCY_LAYERS = {"gemma-7b": 4, "qwen2-moe-a2.7b": 4, "llama-3.2-vision-11b": 10}
+# large (gemma-7b 34 GB, qwen2-moe-a2.7b 60.6 GB); the vlm keeps two cross
+# blocks; deepseek-67b at 4 layers 17.8 GB, llama4-scout-17b-a16e at 2 25.9 GB
+CONSISTENCY_LAYERS = {"gemma-7b": 4, "qwen2-moe-a2.7b": 4, "llama-3.2-vision-11b": 10,
+                      "deepseek-67b": 4, "llama4-scout-17b-a16e": 2}
 # the bf16 causal prefill shape each model hands a kernel: K1 (B, S, T, H, K, hd),
 # K2 (b, s, h, p, n, chunk)
 K1_SHAPES = {"qwen2-0.5b": (8, 512, 512, 14, 2, 64),
@@ -200,7 +244,9 @@ K1_SHAPES = {"qwen2-0.5b": (8, 512, 512, 14, 2, 64),
              "gemma-7b": (8, 512, 512, 16, 16, 256),
              "qwen2-moe-a2.7b": (8, 512, 512, 16, 16, 128),
              "musicgen-medium": (8, 512, 512, 24, 24, 64),
-             "llama-3.2-vision-11b": (8, 512, 512, 32, 8, 128)}
+             "llama-3.2-vision-11b": (8, 512, 512, 32, 8, 128),
+             "deepseek-67b": (8, 512, 512, 64, 8, 128),              # GQA group 8
+             "llama4-scout-17b-a16e": (8, 512, 512, 40, 8, 128)}     # GQA group 5
 # the vlm's cross-attention, not causal over its n_img_tokens = 1601 image
 # keys: in the prefill (S = 512) and in each decode step (S = 1)
 K1_CROSS_SHAPES = {"llama-3.2-vision-11b cross, prefill": (8, 512, 1601, 32, 8, 128),
@@ -228,6 +274,8 @@ CACHE_LEN_LAYERS = 4              # depth of the f32 cache-length check (full wi
 CACHE_LEN_TOL = 1e-5              # f32 logits, cache grown by 64 vs by 65 slots
 WF_TRAIN_STEPS, WF_TRAIN_PHASES = 6, 3
 MATMUL_N, MATMUL_ITERS = 8192, 4  # the diamond's matmul_payload pods
+SHARD_TENANTS = ("batch-a", "prod-a")   # shard_of: 0 and 1 of 2 (crc32)
+SHARD_TIMEOUT_S = 120.0           # the sharded plane's join deadline
 # phase 7: the ssm and hybrid families' training, and remat
 SSD_TRAIN_CHUNK = 32              # the reference's train cells' chunk (launch/dryrun.py)
 K2_TRAIN_SHAPES = {arch: shape[:5] + (SSD_TRAIN_CHUNK,) for arch, shape in K2_SHAPES.items()}
@@ -258,11 +306,37 @@ TRAIN_8_LR = {"qwen2-moe-a2.7b": 3e-5, "musicgen-medium": TRAIN_7_LR,
 TRAIN_8_PLAIN_LAYERS = {"qwen2-moe-a2.7b": 2, "musicgen-medium": 8, "llama-3.2-vision-11b": 5}
 NEAR_TIE = 1e-5                   # a flipped top-k choice between probabilities this close
 K1_CROSS_TRAIN = "llama-3.2-vision-11b cross, prefill"   # K1 under a gradient at this shape
+# phase 9: gemma-7b's training (GeGLU, scaled and tied embeddings, hd 256).
+# Depth cut (full widths): its f32 train state at 28 bytes a parameter is
+# 239 GB at 28 layers; 4 layers hold 1.894 B parameters, 53.0 GB, and 5
+# 2.171 B, 60.8 GB, the vlm cut's 61.1 GB, which peaked at 71.9 GB; gemma's
+# 256,000-row tied embedding adds 8 x 512 x 256,000 logits (2.1 GB in bf16,
+# 4.2 GB a pass in f32) and an embedding gradient from the input and the
+# head, so 4 layers leave the room 5 would not
+GEMMA_ARCH, TRAIN_9_LAYERS, TRAIN_9_STEPS = "gemma-7b", 4, 4
+TRAIN_9_PLAIN_LAYERS = 2          # the f32 forward + backward, kernels vs plain
+# phase 9's peak learning rate: at 1e-4, 3e-5 and 1e-5 the 4-layer cut's loss
+# fell every step from 46.82, to 17.54, 28.11 and 37.93 in 4 steps, with the
+# plain versions step for step alike (scripts/probe_train_lr.py --plain), so
+# phase 7's rate, the fastest of the three, and no divergence to avoid
+TRAIN_9_LR = TRAIN_7_LR
+K1_GEMMA_TRAIN = K1_SHAPES[GEMMA_ARCH]                 # K1 under a gradient at hd 256
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
 # (bf16 on the tensor cores; f32 outside them).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def use_expandable_segments() -> None:
+    """Have the CUDA caching allocator map its memory in expandable segments,
+    unless the caller set ``PYTORCH_CUDA_ALLOC_CONF``; call before CUDA
+    initialises. Without them, beside a full-width model of 53-59 GB the
+    free memory lay in pieces too small for a 13.4 GiB stacked leaf at
+    deepseek-67b's init or a 2.9 GiB AdamW temporary of gemma-7b's step:
+    both ran out of memory with 14-15 GiB reserved but unallocated (NVIDIA
+    H100 80GB HBM3)."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -357,6 +431,10 @@ def check_k1(gen) -> dict:
         (8, 512, 512, 24, 24, 64, f32, True),
         (8, 512, 512, 32, 8, 128, bf16, True),     # llama-3.2-vision-11b's self-attention
         (8, 512, 512, 32, 8, 128, f32, True),
+        (8, 512, 512, 64, 8, 128, bf16, True),     # deepseek-67b's prefill, GQA group 8
+        (8, 512, 512, 64, 8, 128, f32, True),
+        (8, 512, 512, 40, 8, 128, bf16, True),     # llama4-scout-17b-a16e's, group 5
+        (8, 512, 512, 40, 8, 128, f32, True),
         (8, 512, 1601, 32, 8, 128, bf16, False),   # its cross-attention: ragged T = 1601
         (8, 512, 1601, 32, 8, 128, f32, False),
         (8, 1, 1601, 32, 8, 128, bf16, False),     # ... and in each decode step, S = 1
@@ -1457,11 +1535,20 @@ def matmul_bound_s(n: int, iters: int) -> float:
     return iters * 2 * n ** 3 / PEAK_FLOP_PER_S["float32"]
 
 
+def _diamond(name: str, payload=None):
+    """A diamond DAG (0 -> 1, 2 -> 3) whose tasks run ``payload`` (None: the
+    virtual payload, the tasks' calibrated durations)."""
+    from repro_torch.core.dag import Task, Workflow
+    edges = {"0": ([], ["1", "2"]), "1": (["0"], ["3"]), "2": (["0"], ["3"]),
+             "3": (["1", "2"], [])}
+    return Workflow(name, {tid: Task(id=tid, inputs=i, outputs=o, payload=payload)
+                           for tid, (i, o) in edges.items()})
+
+
 def matmul_diamond(*, device: str, n: int, iters: int) -> dict:
     """A diamond DAG (0 -> 1, 2 -> 3) of ``matmul_payload`` pods under the
     engine with ``payload_mode="real"``: each pod's seconds (its virtual
     run time is its wall time) and output."""
-    from repro_torch.core.dag import Task, Workflow
     from repro_torch.core.payloads import matmul_payload
     from repro_torch.core.runner import ControlPlane
 
@@ -1471,17 +1558,113 @@ def matmul_diamond(*, device: str, n: int, iters: int) -> dict:
     def pod(volume, task):
         mm(volume, task)
         outs[task.id] = volume.get(f"{task.id}/out")
-    edges = {"0": ([], ["1", "2"]), "1": (["0"], ["3"]), "2": (["0"], ["3"]),
-             "3": (["1", "2"], [])}
-    wf = Workflow("diamond", {tid: Task(id=tid, inputs=i, outputs=o, payload=pod)
-                              for tid, (i, o) in edges.items()})
+    wf = _diamond("diamond", pod)
     plane = ControlPlane("kubeadaptor", payload_mode="real", seed=SEED)
     plane.gateway.load([wf.with_instance(0)])
     res = plane.run()
     seconds = {p.task_id: p.finished - p.started for p in res.cluster.pod_log
-               if p.task_id in edges}
+               if p.task_id in wf.tasks}
     return {"pod_seconds": seconds, "outputs": outs,
             "order_consistent": res.metrics.order_consistent(wf.with_instance(0))}
+
+
+def example_twins() -> dict:
+    """Run the host-only twins of ``examples/quickstart.py`` and
+    ``examples/multi_workflow.py`` (``repro_torch.examples.quickstart``,
+    ``multi_workflow``) in this process: {name: its stdout}."""
+    import io
+    from repro_torch.examples import multi_workflow, quickstart
+    out = {}
+    for name, mod in (("quickstart", quickstart), ("multi_workflow", multi_workflow)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mod.main()
+        out[name] = buf.getvalue()
+    return out
+
+
+def sharded_diamonds(*, processes: bool, device: Optional[str], n: int = MATMUL_N,
+                     iters: int = MATMUL_ITERS) -> dict:
+    """A 2-shard ``ShardedControlPlane`` with one diamond workflow per tenant
+    in ``SHARD_TENANTS`` (one tenant a shard). With ``device``, every task is
+    a ``matmul_payload(n, iters)`` pod on it under ``payload_mode="real"``,
+    and each pod's run is logged in run order (tenant, task, the bytes it
+    allocated on the card above what was live, its output); without, the
+    tasks are virtual. Returns the result and the log."""
+    import torch
+    from repro_torch.core.payloads import matmul_payload
+    from repro_torch.core.shard import ShardedControlPlane
+    log = []
+
+    def pod_of(tenant):
+        mm = matmul_payload(n=n, iters=iters, device=device)
+
+        def pod(volume, task):
+            cuda = torch.device(device).type == "cuda"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+                live = torch.cuda.memory_allocated()
+            mm(volume, task)
+            log.append({"tenant": tenant, "task": task.id,
+                        "device_bytes": torch.cuda.max_memory_allocated() - live if cuda else 0,
+                        "out": volume.get(f"{task.id}/out")})
+        return pod
+    plane = ShardedControlPlane(len(SHARD_TENANTS), payload_mode="real" if device else "virtual",
+                                seed=SEED, processes=processes, heartbeat_s=0.5,
+                                shard_timeout_s=SHARD_TIMEOUT_S)
+    for tenant in SHARD_TENANTS:
+        plane.add_stream(_diamond(f"diamond-{tenant}", pod_of(tenant) if device else None),
+                         tenant=tenant)
+    return {"result": plane.run(), "log": log}
+
+
+def sharded_plane_checks(reference_out) -> dict:
+    """Phase 6's sharded plane on the card: inline (``processes=False``) with
+    real ``matmul_payload`` pods, each tenant's diamond run in order and on
+    the card by its own shard, every output bit-equal to ``reference_out``
+    (the unsharded diamond's); the same plane with virtual payloads in
+    forked workers equal to its inline run; and forked workers that would
+    run the card's payloads fail as a ``ShardFailure`` within
+    ``SHARD_TIMEOUT_S`` (CUDA cannot be used in a child forked after the
+    parent initialised it, as with the reference's fork context)."""
+    import torch
+    from repro_torch.core.shard import ShardFailure, shard_of
+    real = sharded_diamonds(processes=False, device="cuda")
+    res, log = real["result"], real["log"]
+    order = {tenant: [r["task"] for r in log if r["tenant"] == tenant]
+             for tenant in SHARD_TENANTS}
+    by_shard = {}
+    for r in log:
+        by_shard.setdefault(shard_of(r["tenant"], len(SHARD_TENANTS)), []).append(r)
+    _check(res.completed_workflows == len(SHARD_TENANTS) and res.failed_workflows == 0
+           and not res.degraded, f"sharded plane: {res.completed_workflows} completed, "
+           f"{res.failed_workflows} failed, degraded={res.degraded}")
+    _check(all(o[0] == "0" and o[-1] == "3" and sorted(o) == ["0", "1", "2", "3"]
+               for o in order.values()), f"sharded plane ran out of order: {order}")
+    _check(sorted(by_shard) == list(range(len(SHARD_TENANTS)))
+           and all(r["device_bytes"] >= 4 * MATMUL_N ** 2 for r in log),
+           f"a shard's pods did not run on the card: {by_shard}")
+    _check(all(np.array_equal(r["out"], reference_out) for r in log),
+           "sharded pods' outputs differ from the unsharded diamond's")
+    inline = sharded_diamonds(processes=False, device=None)["result"]
+    forked = sharded_diamonds(processes=True, device=None)["result"]
+    _check(forked.tenant_summary() == inline.tenant_summary()
+           and forked.completed_workflows == inline.completed_workflows == len(SHARD_TENANTS),
+           f"forked virtual plane {forked.tenant_summary()} differs from inline "
+           f"{inline.tenant_summary()}")
+    t0 = time.perf_counter()
+    try:
+        sharded_diamonds(processes=True, device="cuda", n=64, iters=1)
+    except ShardFailure as exc:
+        failure = {"shard": exc.shard, "tenants": exc.tenants, "reason": exc.reason}
+    else:
+        raise RuntimeError("forked workers ran the card's payloads: expected a ShardFailure")
+    failure["seconds"] = time.perf_counter() - t0
+    _check("CUDA" in failure["reason"] and failure["seconds"] < SHARD_TIMEOUT_S,
+           f"forked card payloads: {failure}")
+    torch.cuda.synchronize()
+    return {"pod_order": order, "pods_by_shard": {s: len(r) for s, r in by_shard.items()},
+            "device_bytes": [r["device_bytes"] for r in log], "forked_card_failure": failure}
 
 
 def train_moe_audio_vlm(rc, t_phase: float):
@@ -1542,6 +1725,44 @@ def train_moe_audio_vlm(rc, t_phase: float):
     return k1_cross_grad, trained
 
 
+def train_gemma(rc, t_phase: float):
+    """Phase 9: K1 under a gradient at gemma-7b's hd 256 shape; 4 train steps
+    of gemma-7b cut to ``TRAIN_9_LAYERS`` under ``rc``; its f32 gradients,
+    kernels vs plain, at ``TRAIN_9_PLAIN_LAYERS``. Returns (K1's numbers
+    under a gradient, {label: the launches a step})."""
+    import torch
+    from repro_torch.configs import get_config
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("[9] (a) K1 under a gradient at gemma-7b's shape, hd 256", flush=True)
+    k1_gemma_grad = check_k1_grad(torch.Generator(device="cuda").manual_seed(SEED), [
+        K1_GEMMA_TRAIN + (dtype, True) for dtype in (bf16, f32)])
+    torch.cuda.empty_cache()
+    t_phase = _phase_done(9, t_phase, "(a)")
+    cfg, label = cut_depth(GEMMA_ARCH, TRAIN_9_LAYERS)
+    print(f"[9] (b) {label} (full widths): its f32 train state at full depth, at 28 bytes "
+          f"a parameter, would be {_train_state_gb(get_config(GEMMA_ARCH)):.1f} GB; cut, "
+          f"{_train_state_gb(cfg):.1f} GB", flush=True)
+    trained = {label: train_and_check("[9] (b)", cfg, label, steps=TRAIN_9_STEPS, rc=rc,
+                                      lr=TRAIN_9_LR)}
+    t_phase = _phase_done(9, t_phase, "(b)")
+    cfg, label = cut_depth(GEMMA_ARCH, TRAIN_9_PLAIN_LAYERS)
+    errs = grads_vs_plain(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN)
+    print(f"[9] (c) {label}: f32 forward + backward, kernels vs plain: {json.dumps(errs)}",
+          flush=True)
+    _check(errs["loss_rel"] <= TRAIN_PLAIN_TOL
+           and max(errs["grads_rel"].values()) <= TRAIN_PLAIN_TOL,
+           f"{label}: f32 gradients, kernels vs plain, exceed {TRAIN_PLAIN_TOL}: {errs}")
+    _check(errs["launches"] == expected_launches(cfg),
+           f"{label}: the forward + backward launched {errs['launches']}")
+    nonzero = ["embed"] + [f"blocks/attn/{w}" for w in ("wq", "wk", "wv", "wo")] + [
+        f"blocks/mlp/{w}" for w in ("w1", "w2", "w3")]
+    _check(all(errs["grads_scale"][key] > 0 for key in nonzero),
+           f"{label}: a zero gradient among {nonzero}: {errs['grads_scale']}")
+    torch.cuda.empty_cache()
+    _phase_done(9, t_phase, "(c)")
+    return k1_gemma_grad, trained
+
+
 # ---------------------------------------------------------------------------
 def _phase_done(n: int, t0: float, what: str = "") -> float:
     """Print phase ``n``'s seconds since ``t0``; return the time now."""
@@ -1551,6 +1772,7 @@ def _phase_done(n: int, t0: float, what: str = "") -> float:
 
 
 def main() -> int:
+    use_expandable_segments()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -1564,11 +1786,11 @@ def main() -> int:
 
     # 1. device and build
     t_phase = time.perf_counter()
-    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"[1] device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} "
+    print(f"[1] device: {kind} x{count}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     built = _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
     for res in built.values():
@@ -1589,7 +1811,12 @@ def main() -> int:
     # consistency
     served, decode_served, serve_ms = {}, {}, {}
     for arch in SERVE_ARCHS:
-        cfg = get_config(arch)
+        full = get_config(arch)
+        cfg, label = cut_depth(arch, SERVE_LAYERS.get(arch))
+        if arch in SERVE_LAYERS:
+            print(f"[3] {label} (full widths): its bf16 params at full depth would be "
+                  f"{_tree_bytes(full, torch.bfloat16) / 1e9:.1f} GB; cut, "
+                  f"{_tree_bytes(cfg, torch.bfloat16) / 1e9:.1f} GB", flush=True)
         res = serve(cfg, device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
                     decode_steps=DECODE_STEPS)
         print(f"[3] {arch} ({cfg.n_layers} layers): served {SERVE_BATCH} requests of "
@@ -1613,11 +1840,11 @@ def main() -> int:
         torch.cuda.empty_cache()             # the bf16 model is gone before [4]
         t_phase = _phase_done(3, t_phase, arch)
 
-        layers = CONSISTENCY_LAYERS.get(arch, cfg.n_layers)
+        layers = CONSISTENCY_LAYERS.get(arch, full.n_layers)
         cut = (f" cut to {layers} layers (full widths; its f32 params at full depth "
-               f"alone are {_tree_bytes(cfg, torch.float32) / 1e9:.1f} GB)"
-               if layers != cfg.n_layers else "")
-        errs = consistency(dataclasses.replace(cfg, n_layers=layers), device="cuda",
+               f"alone are {_tree_bytes(full, torch.float32) / 1e9:.1f} GB)"
+               if layers != full.n_layers else "")
+        errs = consistency(dataclasses.replace(full, n_layers=layers), device="cuda",
                            prefill_batch=SERVE_BATCH, prefill_len=PROMPT_LEN, batch=2,
                            seq_len=96, split=32)
         print(f"[4] {arch}{cut}: f32 consistency: {json.dumps(errs)}", flush=True)
@@ -1758,6 +1985,30 @@ def main() -> int:
            f"matmul diamond: {mm['pod_seconds']}")
     _check(all(np.isfinite(y).all() and np.array_equal(y, mm["outputs"]["0"])
                for y in mm["outputs"].values()), f"matmul pods' outputs {mm['outputs']}")
+    torch.cuda.synchronize()
+    ops_before, mem_before = _launches(), torch.cuda.memory_allocated()
+    twins = example_twins()
+    _check(_launches() == ops_before and torch.cuda.memory_allocated() == mem_before,
+           "the host-only example twins touched the card")
+    for twin, text in twins.items():
+        print(f"[6] repro_torch.examples.{twin}:\n" + "\n".join(
+            "    " + line for line in text.splitlines()), flush=True)
+    engines = [line for line in twins["quickstart"].splitlines() if "order_consistent=" in line]
+    rows = twins["multi_workflow"].splitlines()
+    _check(len(engines) == 3 and all("order_consistent=True" in line for line in engines),
+           f"quickstart twin: {engines}")
+    _check(rows[-1] == "OK" and sum(line.endswith(" True") for line in rows) == 4,
+           f"multi_workflow twin: {rows}")
+    shards = sharded_plane_checks(mm["outputs"]["0"])
+    print(f"[6] ShardedControlPlane, {len(SHARD_TENANTS)} shards, a diamond of "
+          f"matmul_payload(n={MATMUL_N}, iters={MATMUL_ITERS}) pods per tenant "
+          f"{list(SHARD_TENANTS)}, processes=False, payload_mode=\"real\": every workflow "
+          f"completed, order by tenant {json.dumps(shards['pod_order'])}, pods by shard "
+          f"{json.dumps(shards['pods_by_shard'])}, bytes each pod allocated on the card "
+          f"{shards['device_bytes']}, outputs bit-equal to the unsharded diamond's; the plane "
+          f"with virtual payloads, processes=True: merged tenant summary equal to "
+          f"processes=False; processes=True with the card's payloads (CUDA initialised in "
+          f"the parent): {json.dumps(shards['forked_card_failure'])}", flush=True)
     t_phase = _phase_done(6, t_phase)
 
     # 7. the ssm and hybrid families' training, and remat
@@ -1807,7 +2058,11 @@ def main() -> int:
     k1_cross_grad, trained = train_moe_audio_vlm(remat_rc, t_phase)
     train_launches.update(trained)
 
-    # 9. results; the ok line is last
+    # 9. gemma-7b's training: K1 at hd 256 under a gradient
+    k1_gemma_grad, trained = train_gemma(remat_rc, time.perf_counter())
+    train_launches.update(trained)
+
+    # 10. results; the ok line is last
     # launches: the sum over the served models' timed prefills (each counted
     # from 0), and per model
     for entry, kernel in ((k1, "attention"), (k2, "ssd")):
@@ -1823,12 +2078,13 @@ def main() -> int:
     k2["at"].update(k2_train)
     k1.update({f"train_{key}": val for key, val in k1_grad.items()})
     k1["at"][f"{K1_CROSS_TRAIN}, under a gradient"] = k1_cross_grad
+    k1["at"][f"{GEMMA_ARCH}, under a gradient"] = k1_gemma_grad
     k1["workflow_serve_launches_by_pod"] = serve_pod_launches
     k1["workflow_train_launches_per_step"] = tw["step_k1_launches"][0]
     k1["workflow_eval_launches"] = tw["pod_k1_launches"]["eval"][0]
     print(json.dumps({"kernels": [k1, k2]}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0
 

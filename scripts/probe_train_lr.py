@@ -29,6 +29,8 @@ sys.path.insert(0, str(ROOT))
 
 
 def main() -> int:
+    import chip_smoke as cs
+    cs.use_expandable_segments()
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -44,7 +46,6 @@ def main() -> int:
         print("probe_train_lr: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    import chip_smoke as cs
     from repro_torch.configs import get_config
 
     cfg = get_config(args.arch)

@@ -5,8 +5,10 @@
 
 ARCH is one of the served configs of ``chip_smoke.py`` phase 3
 (qwen2-0.5b unless given): qwen2-0.5b, qwen2-1.5b, mamba2-2.7b,
-zamba2-1.2b, gemma-7b, qwen2-moe-a2.7b, musicgen-medium or
-llama-3.2-vision-11b. Builds the full-width model at full depth in bf16
+zamba2-1.2b, gemma-7b, qwen2-moe-a2.7b, musicgen-medium,
+llama-3.2-vision-11b, deepseek-67b or llama4-scout-17b-a16e. Builds the
+full-width model at phase 3's depth (full depth, but the last two at
+``chip_smoke.SERVE_LAYERS``) in bf16
 with seeded random weights (a vlm's cross-block gates set to
 ``chip_smoke.CROSS_GATE``) and the requests of phase 3 (8 x 512
 positions: ``chip_smoke.make_request``, so tokens, frame embeddings for
@@ -145,6 +147,8 @@ DECODE_STEPS = 8
 
 
 def main() -> int:
+    import chip_smoke
+    chip_smoke.use_expandable_segments()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,12 +159,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import PROMPT_LEN, SERVE_BATCH, init_params, make_request
-    from repro_torch.configs import get_config
+    from chip_smoke import (PROMPT_LEN, SERVE_BATCH, SERVE_LAYERS, cut_depth, init_params,
+                            make_request)
     from repro_torch.models import RunConfig, build
     from repro_torch.runtime.serve import grow_cache
 
-    cfg = get_config(args.arch)
+    cfg, _ = cut_depth(args.arch, SERVE_LAYERS.get(args.arch))
     rc = RunConfig(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device="cuda")
     model = build(cfg, rc)
     params = init_params(model)

@@ -103,6 +103,8 @@ def moe_under_grad(prof) -> dict:
 
 
 def main() -> int:
+    import chip_smoke
+    chip_smoke.use_expandable_segments()
     import torch
     from torch.profiler import ProfilerActivity, profile
 

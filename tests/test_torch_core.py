@@ -6,9 +6,10 @@ so the port keeps a copy of it rather than importing it. These tests hold
 the copy to its reference:
 
 * fidelity: each of the 29 modules that the two ML examples reach
-  through their imports equals its reference source after the import
-  rewrite (``repro.`` -> ``repro_torch.`` on import lines only), but for
-  the edits named in ``ALLOWED_EDITS``;
+  through their imports, and the sharded plane ``core/shard.py``, equals
+  its reference source after the import rewrite (``repro.`` ->
+  ``repro_torch.`` on import lines only), but for the edits named in
+  ``ALLOWED_EDITS``;
 * parity: the same seeded ``stress_payload`` workflows give equal binding
   sequences, virtual lifecycles and order consistency through both
   packages (``run_experiment`` over every engine, a multi-tenant
@@ -17,7 +18,9 @@ the copy to its reference:
 * the ``cc`` helper: the pure-Python backend (``REPRO_SHUFFLE_NO_NATIVE``)
   binds as the native one does, and a failed build raises;
 * ``matmul_payload``: the torch twin writes the JAX payload's ``y[0, :4]``
-  (f32, 1e-4).
+  (f32, 1e-4);
+* the host-only example twins (``repro_torch.examples.quickstart``,
+  ``multi_workflow``) print the reference scripts' output, byte for byte.
 """
 import ast
 import hashlib
@@ -43,6 +46,8 @@ CORE = ["__init__", "autoscaler", "baselines", "calibration", "chaos", "cluster"
 POLICY = ["__init__", "filters", "ordering", "pipeline", "preemption", "reservations"]
 COPIED = ([f"core/{m}.py" for m in CORE] + [f"core/policy/{m}.py" for m in POLICY]
           + ["configs/workflows.py"])
+# outside the examples' closure, copied with it (the sharded plane)
+SHARD = "core/shard.py"
 
 # {module: ({top-level function names, or "__doc__" for the module
 # docstring, that the copy changes}, why)}
@@ -86,7 +91,7 @@ def _mask(text: str, names) -> str:
     return "\n".join(lines)
 
 
-@pytest.mark.parametrize("rel", COPIED)
+@pytest.mark.parametrize("rel", COPIED + [SHARD])
 def test_copy_equals_reference_after_import_rewrite(rel):
     expect = rewrite_imports((SRC / "repro" / rel).read_text())
     got = (SRC / "repro_torch" / rel).read_text()
@@ -145,6 +150,17 @@ def test_copied_modules_are_the_closure():
     assert "core/shard.py" not in closure
     lines = sum(len((SRC / "repro" / rel).read_text().splitlines()) for rel in closure)
     assert len(closure) == 29 and lines == 8282
+
+
+def test_copied_set_is_the_closure_plus_the_sharded_plane():
+    """Every module of ``repro_torch.core`` (and the workflows config) is a
+    copy: the examples' closure plus ``core/shard.py``, nothing else."""
+    port = SRC / "repro_torch"
+    copied = sorted(str(f.relative_to(port)) for f in (port / "core").rglob("*.py"))
+    copied.append("configs/workflows.py")
+    assert sorted(copied) == sorted(COPIED + [SHARD])
+    lines = sum(len((SRC / "repro" / rel).read_text().splitlines()) for rel in copied)
+    assert len(copied) == 30 and lines == 9177
 
 
 # ---------------------------------------------------------------------------
@@ -411,3 +427,17 @@ def test_matmul_payload_stays_on_the_card_unless_asked():
     from repro_torch.core.dag import Task
     with pytest.raises((RuntimeError, AssertionError)):
         payloads.matmul_payload(n=8)(None, Task(id="mm"))
+
+
+# ---------------------------------------------------------------------------
+# the host-only example twins
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["quickstart", "multi_workflow"])
+def test_example_twin_prints_the_reference_output(name):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    ref = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py")],
+                         capture_output=True, timeout=120, env=env, cwd=str(ROOT))
+    twin = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}"],
+                          capture_output=True, timeout=120, env=env, cwd=str(ROOT))
+    assert ref.returncode == 0 and twin.returncode == 0, (ref.stderr + twin.stderr)[-3000:]
+    assert ref.stdout and twin.stdout == ref.stdout

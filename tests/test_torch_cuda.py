@@ -45,6 +45,15 @@ K1's launches a step as ``chip_smoke.expected_train_launches`` counts
 them (the vlm's cross blocks once, its rematted self-attention layers
 twice), and ``FlashAttentionFn``'s gradients at a ragged non-causal
 cross-like shape (S=100, T=333, H=32 over K=8, hd 128).
+
+gemma-7b's training and the two largest models' GQA groups: the reduced
+gemma-7b at head_dim 256 takes an f32 step on the card against the
+CPU's, remat off and "full" (K1 at hd 256 under a gradient, 4 and 8
+launches); ``FlashAttentionFn``'s gradients at H=16 over K=2 (deepseek-
+67b's group of 8) and H=10 over K=2 (llama4-scout-17b-a16e's group of
+5). The sharded control plane: inline, its pods run on the card; its
+workers forked after this process initialised CUDA cannot, and fail as a
+``ShardFailure`` (the reference forks too).
 """
 import dataclasses
 
@@ -359,7 +368,9 @@ def test_reduced_mamba2_decode_matches_forward_on_card(card):
 @pytest.mark.parametrize("B,S,T,H,K,hd", [(2, 200, 200, 14, 2, 64), (2, 128, 128, 4, 4, 32),
                                           (1, 77, 130, 4, 1, 128), (2, 64, 64, 14, 14, 64),
                                           (1, 77, 130, 8, 2, 256), (2, 64, 64, 4, 4, 256),
-                                          (2, 100, 333, 32, 8, 128)])   # the vlm's cross
+                                          (2, 100, 333, 32, 8, 128),    # the vlm's cross
+                                          (2, 100, 100, 16, 2, 128),    # GQA group 8
+                                          (2, 100, 100, 10, 2, 128)])   # GQA group 5
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_fn_grads_match_plain(card, B, S, T, H, K, hd, dtype, causal):
@@ -557,7 +568,20 @@ def test_reduced_moe_audio_vlm_train_step_on_card_matches_cpu(card, arch, launch
     gradient leaf within 1e-4 of its largest value; loss, grad norm rel
     1e-4; params, m and v 1e-4 (peak lr 1e-4). K1 launches a step as
     ``chip_smoke.expected_train_launches`` counts them."""
-    cfg = get_config(arch).reduced()
+    _train_step_on_card_matches_cpu(card, get_config(arch).reduced(), remat, launches[remat])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,launches", [("off", 4), ("full", 8)])
+def test_reduced_gemma_head_dim_256_train_step_on_card_matches_cpu(card, remat, launches):
+    """The same for the reduced gemma-7b at its head_dim of 256 (GeGLU,
+    scaled and tied embeddings): K1 at hd 256 under a gradient, through
+    ``FlashAttentionFn``, once a layer, twice under remat."""
+    cfg = dataclasses.replace(get_config("gemma-7b").reduced(), head_dim=256)
+    _train_step_on_card_matches_cpu(card, cfg, remat, launches)
+
+
+def _train_step_on_card_matches_cpu(card, cfg, remat, launches):
     flags = {} if remat == "off" else dict(remat=True, remat_policy="full")
     rc = RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32, device="cpu",
                    **flags)
@@ -580,7 +604,7 @@ def test_reduced_moe_audio_vlm_train_step_on_card_matches_cpu(card, arch, launch
     before = ops.attention.launches
     new_card, met_card = step_card(on_card, card_batch)
     torch.cuda.synchronize()
-    assert ops.attention.launches - before == launches[remat] == \
+    assert ops.attention.launches - before == launches == \
         _chip_smoke().expected_train_launches(cfg, rc)["attention"]
     for key in ("loss", "grad_norm", "lr"):
         assert float(met_card[key]) == pytest.approx(float(met_cpu[key]), rel=1e-4), key
@@ -623,3 +647,33 @@ def test_serve_twin_on_card(card, compute):
     out = serve_batch.run(cfg, params, prompts, gen=32, rc=rc)
     assert torch.equal(out["tokens"], out["plain_tokens"]) and out["order_consistent"]
     assert out["k1_launches"] == {"prefill": cfg.n_layers, "decode": 0}
+
+
+@pytest.mark.cuda
+def test_forked_shard_worker_cannot_use_the_card(card):
+    """``ShardedControlPlane(processes=True)`` forks its workers, as the
+    reference does: once this process has initialised CUDA, a worker whose
+    payload runs on the card fails, and the failure comes back through the
+    error pipe as a ``ShardFailure``, well inside the join deadline. Inline
+    (``processes=False``) the same plane runs its pods on the card."""
+    import time
+    from repro_torch.core.dag import Task, Workflow
+    from repro_torch.core.payloads import matmul_payload
+    from repro_torch.core.shard import ShardedControlPlane, ShardFailure
+    torch.zeros(1, device=card)                          # CUDA initialised here
+    mm = matmul_payload(n=64, iters=1, device="cuda")
+    edges = {"0": ([], ["1"]), "1": (["0"], [])}
+
+    def plane(processes):
+        p = ShardedControlPlane(2, payload_mode="real", seed=0, processes=processes,
+                                heartbeat_s=0.5, shard_timeout_s=120.0)
+        for tenant in ("batch-a", "prod-a"):             # shard 0 and shard 1
+            p.add_stream(Workflow("pair", {tid: Task(id=tid, inputs=i, outputs=o, payload=mm)
+                                           for tid, (i, o) in edges.items()}), tenant=tenant)
+        return p
+    assert plane(False).run().completed_workflows == 2
+    t0 = time.monotonic()
+    with pytest.raises(ShardFailure) as exc:
+        plane(True).run()
+    assert time.monotonic() - t0 < 60.0
+    assert "CUDA" in exc.value.reason

@@ -129,6 +129,44 @@ def test_reduced_prefill_and_greedy_decode(dtype):
         np.testing.assert_array_equal(torch.cat(ttoks, dim=1).numpy(), jtoks)
 
 
+@pytest.mark.parametrize("heads", [None, (16, 2)])
+def test_reduced_deepseek_prefill_and_greedy_decode_f32(heads):
+    """Reduced deepseek-67b (dense, no qkv bias, an untied head, rope 1e4)
+    in f32: prefill logits and cache, and greedy decode, against JAX; at
+    the reduced 4 query heads over 2 KV heads, and at 16 over 2, its own
+    GQA group of 8."""
+    jc, tc = jax_config("deepseek-67b").reduced(), get_config("deepseek-67b").reduced()
+    if heads is not None:
+        jc, tc = (dataclasses.replace(c, n_heads=heads[0], n_kv_heads=heads[1])
+                  for c in (jc, tc))
+    jm = jax_build(jc, JaxRunConfig(param_dtype="float32", compute_dtype="float32"))
+    jp = jm.init(jax.random.PRNGKey(3))
+    tm = build(tc, RunConfig(param_dtype=torch.float32, compute_dtype=torch.float32,
+                             device="cpu"))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    assert (tc.qkv_bias, tc.tie_embeddings, tc.gelu_mlp) == (False, False, False)
+    assert "head" in tp and "bq" not in tp["blocks"]["attn"]
+    prompts = _tokens(tc, 2, 20, seed=4)
+    jl, jcache = jm.prefill(jp, {"tokens": jnp.asarray(prompts)})
+    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(prompts)})
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=F32_TOL, rtol=F32_TOL)
+    assert tcache["k"].shape == jcache["k"].shape == (4, 2, 20, tc.n_kv_heads, 32)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]), atol=F32_TOL,
+                                   rtol=F32_TOL)
+    steps = 4
+    jtoks, jlogits = _jax_greedy(jm, jp, prompts, steps)
+    cache = _grow(tcache, steps)
+    tok = tl[:, -1:].argmax(dim=-1)
+    ttoks = [tok]
+    for t in range(steps):
+        lg, cache = tm.decode(tp, cache, {"tokens": tok})
+        np.testing.assert_allclose(_np(lg), _np(jlogits[t]), atol=F32_TOL, rtol=F32_TOL)
+        tok = lg.argmax(dim=-1)
+        ttoks.append(tok)
+    np.testing.assert_array_equal(torch.cat(ttoks, dim=1).numpy(), jtoks)
+
+
 def test_dense_family_switches_f32():
     """The dense-family switches qwen2 leaves off (gemma's scaled
     embeddings, logit soft cap, GeGLU, and an untied head), on the
@@ -293,7 +331,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 64, mods\n"
+        "assert len(mods) >= 74, mods\n"
         "named = {'repro_torch.optim.adamw', 'repro_torch.parallel.compression',\n"
         "         'repro_torch.runtime.train', 'repro_torch.data.pipeline',\n"
         "         'repro_torch.checkpoint.checkpointer', 'repro_torch.tree',\n"
@@ -304,13 +342,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "         'repro_torch.configs.llama4_scout_17b_a16e',\n"
         "         'repro_torch.configs.musicgen_medium', 'repro_torch.configs.llama32_vision_11b',\n"
         "         'repro_torch.examples.serve_batch', 'repro_torch.examples.workflow_train',\n"
+        "         'repro_torch.examples.quickstart', 'repro_torch.examples.multi_workflow',\n"
         "         'repro_torch.core', 'repro_torch.core.policy'}\n"
         "named |= {f'repro_torch.core.{m}' for m in (\n"
         "    'autoscaler', 'baselines', 'calibration', 'chaos', 'cluster', 'dag',\n"
         "    'descheduler', 'engine', 'events', 'gateway', 'informer', 'injector',\n"
         "    'metrics', 'payloads', 'resources', 'runner', 'schedulers', 'shuffle',\n"
         "    'sim', 'stats', 'volumes', 'policy.filters', 'policy.ordering',\n"
-        "    'policy.pipeline', 'policy.preemption', 'policy.reservations')}\n"
+        "    'policy.pipeline', 'policy.preemption', 'policy.reservations', 'shard')}\n"
         "assert named <= set(mods), sorted(named - set(mods))\n"
         "print(len(mods))\n"
     )
@@ -364,3 +403,35 @@ def test_k1_bound_at_the_serving_shape(chip_smoke):
     ms32, by32 = chip_smoke.attention_bound(8, 512, 512, 14, 2, 64, torch.float32, True)
     assert by32 == "operations"     # 3.77 GFLOP of f32 at 67 TFLOP/s
     assert abs(ms32 - 4 * 8 * 14 * 64 * (512 * 513 // 2) / 67e12 * 1e3) < 1e-12
+
+
+def test_chip_smoke_serves_the_two_largest_at_depth_cuts(chip_smoke):
+    """deepseek-67b and llama4-scout-17b-a16e: their prefill shapes for K1
+    (GQA groups 8 and 5), and the depth cuts of phases 3 (bf16) and 4
+    (f32) from the meta tree: deepseek 134.9 GB of bf16 at 95 layers, 58.7
+    at 40, 17.8 GB of f32 at 4; llama4-scout 215.6 GB at 48, 57.0 at 12,
+    25.9 GB of f32 at 2. Neither trains on one card at any depth."""
+    expect = {"deepseek-67b": (40, 134.9, 58.7, 4, 17.8),
+              "llama4-scout-17b-a16e": (12, 215.6, 57.0, 2, 25.9)}
+    for name, (layers, full_gb, cut_gb, f32_layers, f32_gb) in expect.items():
+        cfg = get_config(name)
+        B, S, T, H, K, hd = chip_smoke.K1_SHAPES[name]
+        assert (B, S, T, H, K, hd) == (8, 512, 512, cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.resolved_head_dim)
+        assert H // K == {"deepseek-67b": 8, "llama4-scout-17b-a16e": 5}[name]
+        assert name in chip_smoke.SERVE_ARCHS
+        assert chip_smoke.SERVE_LAYERS[name] == layers
+        assert chip_smoke.CONSISTENCY_LAYERS[name] == f32_layers
+        cut = chip_smoke.cut_depth(name, layers)[0]
+        f32_cut = chip_smoke.cut_depth(name, f32_layers)[0]
+        assert round(chip_smoke._tree_bytes(cfg, torch.bfloat16) / 1e9, 1) == full_gb
+        assert round(chip_smoke._tree_bytes(cut, torch.bfloat16) / 1e9, 1) == cut_gb
+        assert round(chip_smoke._tree_bytes(f32_cut, torch.float32) / 1e9, 1) == f32_gb
+        # training waits for more than one card: one layer's f32 train state
+        # at 28 bytes a parameter, 66.4 and 119.6 GB, leaves no room on 80 GB
+        one = chip_smoke._train_state_gb(chip_smoke.cut_depth(name, 1)[0])
+        assert round(one, 1) == {"deepseek-67b": 66.4, "llama4-scout-17b-a16e": 119.6}[name]
+        # q and o at H heads, k and v at K: bytes bound the causal bf16 prefill
+        ms, by = chip_smoke.attention_bound(B, S, T, H, K, hd, torch.bfloat16, True)
+        assert by == "bytes"
+        assert ms == pytest.approx((2 * B * S * H + 2 * B * T * K) * hd * 2 / 3.35e12 * 1e3)

@@ -407,7 +407,14 @@ def test_chip_smoke_expected_launches(chip_smoke):
                       "gemma-7b": {"attention": 28, "ssd": 0},
                       "qwen2-moe-a2.7b": {"attention": 24, "ssd": 0},
                       "musicgen-medium": {"attention": 48, "ssd": 0},
-                      "llama-3.2-vision-11b": {"attention": 40 + 8, "ssd": 0}}
+                      "llama-3.2-vision-11b": {"attention": 40 + 8, "ssd": 0},
+                      "deepseek-67b": {"attention": 95, "ssd": 0},
+                      "llama4-scout-17b-a16e": {"attention": 48, "ssd": 0}}
+    # phase 3 serves the two largest at a depth cut: K1 once a layer of the cut
+    cuts = {name: chip_smoke.expected_launches(chip_smoke.cut_depth(name, layers)[0])
+            for name, layers in chip_smoke.SERVE_LAYERS.items()}
+    assert cuts == {"deepseek-67b": {"attention": 40, "ssd": 0},
+                    "llama4-scout-17b-a16e": {"attention": 12, "ssd": 0}}
     per_step = {name: chip_smoke.expected_decode_launches(get_config(name))
                 for name in chip_smoke.SERVE_ARCHS}
     assert per_step["llama-3.2-vision-11b"] == {"attention": 8, "ssd": 0}
