@@ -187,14 +187,40 @@ Phases; any failure exits non-zero and prints no result line:
    loss and every gradient leaf (the tied ``embed`` one leaf) within
    ``TRAIN_PLAIN_TOL``, the attention, GeGLU and embedding leaves
    non-zero.
-10. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
+10. The mesh paths on one card. (a) K1 at a query offset, at qwen2-0.5b's
+   prefill shape in bf16 and f32: the queries cut into tp in
+   ``OFFSET_TPS`` row blocks, each run at ``q_offset = r * S / tp``
+   against the full k/v (what each rank of a "seq" mesh runs), held
+   against the plain version at that offset (``K1_TOL``), the blocks
+   together against the unsharded K1 (``OFFSET_WHOLE_TOL``, and whether
+   bit-equal), and the ``OFFSET_TIMED`` block (128 rows at offset 384)
+   under a gradient against autograd through the plain version
+   (``K1_GRAD_TOL``) and timed beside its bound (this offset's live keys)
+   and SDPA with an explicit boolean mask. Then a world of one NCCL rank
+   and a (data=1, model=1) ``DeviceMesh`` over the card
+   (``init_world_of_one``), made only here, after phase 6's forks, and
+   destroyed at the phase's end. (b) 8 AdamW steps of qwen2-0.5b through
+   ``build_train_step(cfg, mesh)`` on phase 5's seeded state (distributed
+   into the shardings) and batches (``shard_batch``): losses within
+   ``MESH_STEP_TOL`` of phase 5's (whether bit-equal is printed), 24 K1
+   launches a step, the median step ms beside phase 5's and the peak
+   memory. (c) Phase 3's qwen2-0.5b request through the mesh's
+   ``build_prefill_step`` / ``build_decode_step``: the same greedy tokens,
+   24 K1 launches a prefill, none a decode step. (d) ``ElasticRunner`` at
+   world size 1 (no mesh, as in the JAX package): 10 steps checkpointed
+   every 5, then a new runner on the same directory restores step 10 and
+   takes 2 more with finite losses; that checkpoint restored into the
+   (1, 1) mesh's placements (``restore(shardings=)``) is bit-equal to a
+   plain restore.
+11. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the served models' prefills, ``launches_by_arch`` per model,
    ``decode_launches_per_step_by_arch`` where a decode step launches it,
    ``at`` its numbers at each model's prefill shape (K1's also at the
    vlm's cross shapes, and under a gradient at the cross prefill shape
-   and at gemma-7b's),
+   and at gemma-7b's, and at the q offset of phase 10),
    and K2's at its train shapes; ``train_launches_per_step_by_arch`` per
-   trained model; K1's also per workflow pod), the ``nvidia-smi`` line,
+   trained model; K1's also per workflow pod and on the mesh path), the
+   ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line.
 
 It needs CUDA: without a card it exits with code 2 before doing anything.
@@ -322,6 +348,13 @@ TRAIN_9_PLAIN_LAYERS = 2          # the f32 forward + backward, kernels vs plain
 TRAIN_9_LR = TRAIN_7_LR
 K1_GEMMA_TRAIN = K1_SHAPES[GEMMA_ARCH]                 # K1 under a gradient at hd 256
 
+# phase 10: K1 at a query offset, the mesh paths at world size 1
+OFFSET_TPS = (2, 4)               # row blocks of qwen2-0.5b's prefill, one per "seq" rank
+OFFSET_TIMED = (4, 3)             # (tp, rank): the 128-row block at q_offset 384
+OFFSET_WHOLE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # the blocks vs the unsharded K1
+MESH_STEP_TOL = 1e-4              # mesh train losses vs [5]'s (tests/test_torch_train.py)
+ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_MORE = 10, 5, 2
+
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
 # (bf16 on the tensor cores; f32 outside them).
 HBM_BYTES_PER_S = 3.35e12
@@ -351,18 +384,19 @@ def _dtype_name(dtype) -> str:
 # ---------------------------------------------------------------------------
 # K1 bound and timing
 # ---------------------------------------------------------------------------
-def attention_bound(B, S, T, H, K, hd, dtype, causal):
+def attention_bound(B, S, T, H, K, hd, dtype, causal, q_offset=0):
     """(bound_ms, bound_by): the least time for this work on an H100.
 
     Bytes: q (H heads), k and v (K heads) read once and o written once.
     Operations: 2 FLOPs per multiply-add of q.k and of p.v over the
     (query, key) pairs the mask keeps (this run's pairs, not S*T when
-    causal), for every query head.
+    causal: row i, global row ``q_offset + i``, keeps its q_offset + i + 1
+    live keys), for every query head.
     """
     import torch
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * B * S * H * hd + 2 * B * T * K * hd) * itemsize
-    pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
+    pairs = sum(min(q_offset + i + 1, T) for i in range(S)) if causal else S * T
     flops = 4 * B * H * hd * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOP_PER_S[_dtype_name(dtype)]
@@ -755,25 +789,34 @@ def expected_decode_launches(cfg) -> dict:
     return {"attention": cross, "ssd": 0}
 
 
-def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -> dict:
+def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int,
+          mesh=None) -> dict:
     """Answer ``batch`` requests: one prefill, then greedy decode steps.
 
     Returns the timings, the launches of each kernel ({"attention": n,
     "ssd": m}) made by the timed prefill and by the whole timed request,
-    and the generated tokens (B, 1 + decode_steps).
+    and the generated tokens (B, 1 + decode_steps). Given a ``mesh``, the
+    steps are the mesh path's, the params distributed into their
+    shardings and the request placed with the batch's.
     """
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.models import RunConfig
+    from repro_torch.parallel.sharding import whole
     from repro_torch.runtime.serve import build_decode_step, build_prefill_step
+    from repro_torch.runtime.train import distribute
 
     rc = RunConfig(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, device=device)
-    prefill, *_, model = build_prefill_step(cfg, None, B=batch, S=prompt_len, rc=rc)
-    decode, *_ = build_decode_step(
-        cfg, ShapeConfig("serve", "decode", prompt_len + decode_steps, batch), None, rc=rc)
+    prefill, _, _, p_sh, model = build_prefill_step(cfg, mesh, B=batch, S=prompt_len, rc=rc)
+    decode, *_, shardings, _ = build_decode_step(
+        cfg, ShapeConfig("serve", "decode", prompt_len + decode_steps, batch), mesh, rc=rc)
     params = init_params(model)
     request, frames = make_request(cfg, batch, prompt_len, device, steps=decode_steps)
+    if mesh is not None:
+        params = distribute(params, p_sh)
+        b_sh = shardings[2]["tokens"]          # the batch dim on dp, as every input's
+        request = distribute(request, {k: b_sh for k in request})
 
     # warm-up at the timed shapes (GEMM plans, allocator pools), not timed
     warm_logits, warm_cache = prefill(params, request)
@@ -792,6 +835,7 @@ def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int) -
     _sync(device)
     t2 = time.perf_counter()
     launches = _launches()
+    gen, logits = whole(gen), whole(logits)
     _check(tuple(gen.shape) == (batch, 1 + decode_steps), f"tokens {tuple(gen.shape)}")
     _check(bool(((gen >= 0) & (gen < cfg.vocab_padded)).all()), "token out of range")
     _check(bool(torch.isfinite(logits.float()).all()), "non-finite decode logits")
@@ -1236,11 +1280,13 @@ def init_train_state(model):
 
 def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
           resume_after: Optional[int] = None, ckpt_dir=None, rc=None,
-          lr: float = 3e-4) -> dict:
+          lr: float = 3e-4, mesh=None) -> dict:
     """``steps`` AdamW steps on ``synthetic_data`` batches through
     ``runtime.train`` from ``init_train_state``, under ``rc``
     (``train_rc(device)`` when None), at peak learning rate ``lr`` (2
-    warmup steps, then the cosine to ``steps``).
+    warmup steps, then the cosine to ``steps``). Given a ``mesh``, the
+    step is the mesh path's: the state is distributed into its shardings
+    and each batch placed with ``shard_batch``.
 
     With ``resume_after``, a checkpoint saved after that step is restored
     into a fresh (meta) state and step ``resume_after + 1`` is taken again
@@ -1252,14 +1298,18 @@ def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
     from repro_torch.data.pipeline import to_device
     from repro_torch.kernels import ops
     from repro_torch.optim.adamw import OptConfig
-    from repro_torch.runtime.train import TrainRunConfig, build_train_step
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.parallel.sharding import specs_of
+    from repro_torch.runtime.train import TrainRunConfig, build_train_step, distribute
     from repro_torch.tree import tree_map
 
     rc = rc or train_rc(device)
     trc = TrainRunConfig(opt=OptConfig(lr=lr, warmup_steps=2, total_steps=steps))
-    step, state_meta, _, _, _, model = build_train_step(cfg, None, B=batch, S=seq_len,
-                                                        rc=rc, trc=trc)
+    step, state_meta, _, st_sh, b_sh, model = build_train_step(cfg, mesh, B=batch,
+                                                               S=seq_len, rc=rc, trc=trc)
     state = init_train_state(model)
+    if mesh is not None:
+        state = distribute(state, st_sh)
     data = synthetic_data(cfg, batch, seq_len)
 
     _sync(device)
@@ -1268,7 +1318,8 @@ def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
     metrics, step_ms, launches = [], [], []
     ops.attention.launches = ops.ssd.launches = 0
     for i in range(1, steps + 1):
-        b = to_device(next(data), device)
+        b = (to_device(next(data), device) if mesh is None
+             else shard_batch(next(data), mesh, specs_of(b_sh)))
         before = _launches()
         _sync(device)
         t0 = time.perf_counter()
@@ -1764,6 +1815,250 @@ def train_gemma(rc, t_phase: float):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the mesh paths at world size 1, and K1 at a query offset
+# ---------------------------------------------------------------------------
+def check_k1_offset(gen) -> dict:
+    """K1 on row blocks at their q offsets (what each rank of a "seq" mesh
+    runs), at qwen2-0.5b's prefill shape: each block against the plain
+    version at the same offset (``K1_TOL``), the blocks together against
+    the unsharded K1 (``OFFSET_WHOLE_TOL``), and under a gradient against
+    autograd through the plain version (``K1_GRAD_TOL``); the timed block
+    (``OFFSET_TIMED``) beside its bound, SDPA with the bottom-right causal
+    mask (the same function) and SDPA with an explicit boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.kernels import ops, ref
+
+    B, S, T, H, K, hd = K1_SHAPES[ARCH]
+    out = {"max_abs_err": 0.0, "whole_bit_equal": True}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = _dtype_name(dtype)
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        whole = ops.attention(q, k, v, causal=True)
+        for tp in OFFSET_TPS:
+            n = S // tp
+            blocks, worst = [], 0.0
+            for r in range(tp):
+                qb = q[:, r * n:(r + 1) * n].contiguous()
+                got = ops.attention(qb, k, v, causal=True, q_offset=r * n)
+                expect = ref.attention_ref(qb, k, v, causal=True, q_offset=r * n)
+                err, ok = _grads_err([got], [expect], K1_TOL[name])
+                _check(ok, f"K1 at q_offset {r * n} ({name}) disagrees with its plain "
+                           f"version: {err}")
+                worst = max(worst, err)
+                blocks.append(got)
+            cat = torch.cat(blocks, dim=1)
+            whole_err = float((cat.float() - whole.float()).abs().max())
+            bit_equal = torch.equal(cat, whole)
+            print(f"  K1 {name} in {tp} row blocks at q_offset r * {n}: vs plain "
+                  f"max_abs_err={worst:.3e} (tol {K1_TOL[name]:g}); the blocks vs the "
+                  f"unsharded K1 max_abs_err={whole_err:.3e} (tol {OFFSET_WHOLE_TOL[name]:g}), "
+                  f"bit-equal {bit_equal}", flush=True)
+            _check(whole_err <= OFFSET_WHOLE_TOL[name],
+                   f"K1's row blocks differ from the unsharded K1: {whole_err}")
+            out["max_abs_err"] = max(out["max_abs_err"], worst)
+            out["whole_bit_equal"] = out["whole_bit_equal"] and bit_equal
+        tp, r = OFFSET_TIMED
+        n = S // tp
+        qb = q[:, r * n:(r + 1) * n].contiguous()
+        dout = torch.randn(qb.shape, generator=gen, device="cuda").to(dtype)
+        inputs = [t.clone().requires_grad_(True) for t in (qb, k, v)]
+        got = torch.autograd.grad(ops.attention(*inputs, causal=True, q_offset=r * n),
+                                  inputs, dout)
+        expect = torch.autograd.grad(ref.attention_ref(*inputs, causal=True, q_offset=r * n),
+                                     inputs, dout)
+        err, ok = _grads_err(got, expect, K1_GRAD_TOL[name])
+        print(f"  K1 grad {name} at q_offset {r * n} (S={n}): dq/dk/dv max_abs_err="
+              f"{err:.3e} (tol {K1_GRAD_TOL[name]:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        _check(ok, f"K1's gradient at q_offset {r * n} disagrees: {err}")
+        del inputs, got, expect
+        if dtype != torch.bfloat16:
+            continue
+        off = r * n
+        ms = time_ms(lambda: ops.attention(qb, k, v, causal=True, q_offset=off))
+        plain_ms = time_ms(lambda: ref.attention_ref(qb, k, v, causal=True, q_offset=off),
+                           iters=20)
+        # the timed block ends at T (offset T - n): its mask is SDPA's
+        # bottom-right causal alignment, one library call of the same function
+        _check(off + n == T, f"OFFSET_TIMED's block at {off} + {n} does not end at T={T}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (qb, ref.repeat_kv(k, H), ref.repeat_kv(v, H)))
+        lower_right = causal_lower_right(n, T)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lower_right).transpose(1, 2)
+        lib_err = float((lib.float() - ref.attention_ref(qb, k, v, causal=True, q_offset=off)
+                         .float()).abs().max())
+        _check(lib_err <= K1_TOL[name], f"SDPA with causal_lower_right is not K1's function "
+                                        f"at q_offset {off}: {lib_err}")
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=lower_right))
+        mask = ref.causal_mask(n, T, off, q.device)
+        mask_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        bound_ms, bound_by = attention_bound(B, n, T, H, K, hd, dtype, True, q_offset=off)
+        out.update({"shape": "B,S,T,H,K,hd=" + ",".join(map(str, (B, n, T, H, K, hd))),
+                    "q_offset": off, "causal": True, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                    "library_bool_mask_ms": mask_ms})
+        print(f"  K1 at q_offset {off} ({out['shape']}, bf16, causal): {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA with causal_lower_right {library_ms:.4f} ms "
+              f"({ms / library_ms:.2f}x; vs plain {lib_err:.3e}), SDPA with a boolean mask "
+              f"{mask_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of the bound", flush=True)
+    return out
+
+
+def init_world_of_one():
+    """The default process group of one rank on this card (NCCL, a free
+    localhost port) and the (data=1, model=1) mesh over it."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def elastic_resume(cfg, *, device: str, mesh, ckpt_dir, batch: int, seq_len: int,
+                   steps: int = ELASTIC_STEPS, every: int = ELASTIC_CKPT_EVERY,
+                   more: int = ELASTIC_MORE) -> dict:
+    """``ElasticRunner`` at world size 1 (no mesh, as in the JAX package):
+    ``steps`` steps checkpointed every ``every``, then a new runner on the
+    same directory restores the last and takes ``more`` steps. Then that
+    checkpoint is restored into ``mesh``'s placements
+    (``restore(shardings=)``) and held bit-equal to a plain restore of it."""
+    import torch
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.parallel.sharding import whole
+    from repro_torch.runtime.elastic import ElasticRunner
+    from repro_torch.runtime.train import TrainRunConfig, build_train_step
+    from repro_torch.tree import tree_flatten_with_path
+
+    rc = train_rc(device)
+    trc = TrainRunConfig(opt=OptConfig(warmup_steps=2, total_steps=steps + more))
+    kw = dict(rc=rc, trc=trc, ckpt_every=every)
+    first = ElasticRunner(cfg, batch, seq_len, str(ckpt_dir), **kw)
+    run1 = first.run(iter(synthetic_data(cfg, batch, seq_len)), steps=steps)
+    del first
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    second = ElasticRunner(cfg, batch, seq_len, str(ckpt_dir), **kw)
+    run2 = second.run(iter(synthetic_data(cfg, batch, seq_len)), steps=more)
+    ckpt = second.ckpt
+    del second
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    _, state_meta, _, st_sh, _, _ = build_train_step(cfg, mesh, B=batch, S=seq_len,
+                                                     rc=rc, trc=trc)
+    t0 = time.perf_counter()
+    placed = tree_flatten_with_path(ckpt.restore(state_meta, step=steps, shardings=st_sh))
+    restore_s = time.perf_counter() - t0
+    plain = tree_flatten_with_path(ckpt.restore(state_meta, step=steps, device=device))
+    equal = placed.keys() == plain.keys() and all(
+        torch.equal(whole(placed[k]), plain[k]) for k in plain)
+    placements = sorted({str(tuple(v.placements)) for v in placed.values()})
+    del placed, plain
+    return {"run1": run1, "run2": run2, "restore_shardings_s": restore_s,
+            "restore_shardings_equal": equal, "placements": placements}
+
+
+def mesh_paths(cfg, trained: dict, served_tokens, t_phase: float) -> dict:
+    """Phase 10: the mesh paths of training and serving and the elastic
+    runner on one card, a world of one NCCL rank; its counts set to 0
+    before each run. Returns the mesh path's launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    mesh = init_world_of_one()
+    print(f"[10] world of {dist.get_world_size()} ({dist.get_backend()}), mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}", flush=True)
+    res = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=TRAIN_STEPS,
+                mesh=mesh)
+    losses = [m["loss"] for m in res["metrics"]]
+    plain = [m["loss"] for m in trained["metrics"]]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    for i, (met, ms, la) in enumerate(zip(res["metrics"], res["step_ms"],
+                                          res["launches_per_step"]), 1):
+        print(f"[10] (b) {ARCH} mesh train step {i}: loss {met['loss']:.6f} (no mesh "
+              f"{plain[i - 1]:.6f}) grad_norm {met['grad_norm']:.6f}, {ms:.3f} ms, "
+              f"launches {la}", flush=True)
+    print(f"[10] (b) {ARCH} on the (1, 1) mesh: {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_LEN} tokens: median step (2-{TRAIN_STEPS}) {res['median_step_ms']:.3f} ms "
+          f"(no mesh, [5]: {trained['median_step_ms']:.3f} ms), "
+          f"{res['tokens_per_s']:.1f} trained tokens/s, max_memory_allocated "
+          f"{res['max_memory_allocated']} B ([5]: {trained['max_memory_allocated']} B); "
+          f"losses vs [5]: max rel diff {diff:.3e} (tol {MESH_STEP_TOL:g}), bit-equal "
+          f"{losses == plain}", flush=True)
+    per_step = {"attention": cfg.n_layers, "ssd": 0}
+    _check(diff <= MESH_STEP_TOL, f"mesh train losses {losses} vs no mesh {plain}")
+    _check(all(la == per_step for la in res["launches_per_step"]),
+           f"mesh train steps launched {res['launches_per_step']}, not {per_step} each")
+    mesh_train = {"median_step_ms": res["median_step_ms"],
+                  "no_mesh_median_step_ms": trained["median_step_ms"],
+                  "max_memory_allocated": res["max_memory_allocated"],
+                  "losses_max_rel_diff": diff, "losses_bit_equal": losses == plain}
+    train_launches = res["launches_per_step"][0]["attention"]
+    del res
+    torch.cuda.empty_cache()
+    t_phase = _phase_done(10, t_phase, "(b)")
+
+    kw = dict(device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+              decode_steps=DECODE_STEPS)
+    plain = serve(cfg, **kw)
+    sv = serve(cfg, mesh=mesh, **kw)
+    same = torch.equal(sv["tokens"], plain["tokens"])
+    print(f"[10] (c) {ARCH} served on the (1, 1) mesh: {SERVE_BATCH} requests of "
+          f"{PROMPT_LEN} tokens + {DECODE_STEPS} decode steps: prefill "
+          f"{sv['prefill_ms']:.3f} ms, decode {sv['decode_ms_per_step']:.3f} ms/step (no "
+          f"mesh, run just before: {plain['prefill_ms']:.3f} ms, "
+          f"{plain['decode_ms_per_step']:.3f} ms/step), launches: prefill "
+          f"{sv['prefill_launches']}, request {sv['request_launches']}; greedy tokens equal "
+          f"to that no-mesh run's: {same} (to [3]'s, earlier in the process: "
+          f"{torch.equal(sv['tokens'].cpu(), served_tokens)})", flush=True)
+    _check(same, "the mesh path's greedy tokens differ from the no-mesh serve's")
+    _check(sv["prefill_launches"] == per_step and sv["request_launches"] == per_step,
+           f"mesh serve launched {sv['prefill_launches']}, {sv['request_launches']}")
+    # the counts this run measured: the first train step's, the prefill's,
+    # and the decode steps' (the request's beyond its prefill) per step
+    launches = {"train_per_step": train_launches,
+                "prefill": sv["prefill_launches"]["attention"],
+                "decode_per_step": (sv["request_launches"]["attention"]
+                                    - sv["prefill_launches"]["attention"]) / DECODE_STEPS}
+    mesh_serve = {**{k: sv[k] for k in ("prefill_ms", "decode_ms_per_step")},
+                  **{f"no_mesh_{k}": plain[k] for k in ("prefill_ms", "decode_ms_per_step")}}
+    del sv, plain
+    torch.cuda.empty_cache()
+    t_phase = _phase_done(10, t_phase, "(c)")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as ckpt_dir:
+        el = elastic_resume(cfg, device="cuda", mesh=mesh, ckpt_dir=ckpt_dir,
+                            batch=TRAIN_BATCH, seq_len=TRAIN_LEN)
+    run1, run2 = el["run1"], el["run2"]
+    print(f"[10] (d) ElasticRunner at world size 1: {ELASTIC_STEPS} steps, checkpoints every "
+          f"{ELASTIC_CKPT_EVERY}: losses {run1['losses']}, events {run1['events']}; a new "
+          f"runner on the same directory: events {run2['events']}, {ELASTIC_MORE} more steps "
+          f"losses {run2['losses']}, final step {run2['final_step']}; the step-"
+          f"{ELASTIC_STEPS} checkpoint restored into the mesh's placements "
+          f"{el['placements']} in {el['restore_shardings_s']:.2f} s: bit-equal to a plain "
+          f"restore {el['restore_shardings_equal']}", flush=True)
+    _check(run1["final_step"] == ELASTIC_STEPS and all(np.isfinite(run1["losses"])),
+           f"elastic run: {run1}")
+    _check(f"restored step={ELASTIC_STEPS} mesh=None" in run2["events"]
+           and run2["final_step"] == ELASTIC_STEPS + ELASTIC_MORE
+           and all(np.isfinite(run2["losses"])), f"elastic resume: {run2}")
+    _check(el["restore_shardings_equal"], "restore(shardings=) differs from a plain restore")
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    _phase_done(10, t_phase, "(d)")
+    return {"train": mesh_train, "serve": mesh_serve, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 def _phase_done(n: int, t0: float, what: str = "") -> float:
     """Print phase ``n``'s seconds since ``t0``; return the time now."""
     now = time.perf_counter()
@@ -1834,6 +2129,8 @@ def main() -> int:
                f"{arch} request launched {res['request_launches']}, not {expect_request} "
                f"(prefill {expect} + {DECODE_STEPS} steps x {per_step})")
         served[arch] = res["prefill_launches"]
+        if arch == ARCH:
+            served_tokens = res["tokens"].cpu()
         decode_served[arch] = per_step
         serve_ms[arch] = (res["prefill_ms"], res["decode_ms_per_step"])
         del res
@@ -2062,7 +2359,14 @@ def main() -> int:
     k1_gemma_grad, trained = train_gemma(remat_rc, time.perf_counter())
     train_launches.update(trained)
 
-    # 10. results; the ok line is last
+    # 10. K1 at a query offset; the mesh paths and the elastic runner at world size 1
+    t_phase = time.perf_counter()
+    print("[10] (a) K1 at a query offset (row blocks of a \"seq\" mesh)", flush=True)
+    k1_offset = check_k1_offset(torch.Generator(device="cuda").manual_seed(SEED))
+    t_phase = _phase_done(10, t_phase, "(a)")
+    mesh_run = mesh_paths(get_config(ARCH), res, served_tokens, t_phase)
+
+    # 11. results; the ok line is last
     # launches: the sum over the served models' timed prefills (each counted
     # from 0), and per model
     for entry, kernel in ((k1, "attention"), (k2, "ssd")):
@@ -2082,6 +2386,10 @@ def main() -> int:
     k1["workflow_serve_launches_by_pod"] = serve_pod_launches
     k1["workflow_train_launches_per_step"] = tw["step_k1_launches"][0]
     k1["workflow_eval_launches"] = tw["pod_k1_launches"]["eval"][0]
+    k1["at"][f"{ARCH}, q_offset"] = k1_offset
+    k1["mesh_launches"] = mesh_run["launches"]
+    k1["mesh_train"] = mesh_run["train"]
+    k1["mesh_serve"] = mesh_run["serve"]
     print(json.dumps({"kernels": [k1, k2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

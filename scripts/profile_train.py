@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one CUDA card.
 
-    python3 scripts/profile_train.py [--arch ARCH] [--layers N] [--remat off|full]
+    python3 scripts/profile_train.py [--arch ARCH] [--layers N] [--remat off|full] [--mesh]
 
 Builds the full-width model (qwen2-0.5b unless ``--arch`` names another
 of the port's configs; full depth unless ``--layers`` cuts it) with f32
@@ -28,13 +28,18 @@ gradient, its routing (``moe.route``) and its dispatch + combine products
 (the first and last einsum of each ``moe.apply_moe``): the device ms of
 the ranges' own kernels (the forward, and under remat its recompute) and
 of the backward nodes those ops recorded (matched by sequence number).
-Then three unprofiled steps.
+Then three unprofiled steps. ``--mesh`` runs the mesh path instead: a
+world of one NCCL rank (``chip_smoke.init_world_of_one``), the step of
+``build_train_step(cfg, mesh)`` on the (data=1, model=1) mesh, the state
+distributed into its shardings and the batches placed with
+``shard_batch``, so the windows show what DTensor's dispatch costs.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -113,17 +118,21 @@ def main() -> int:
                         help="one of repro_torch.configs.list_configs()")
     parser.add_argument("--layers", type=int, default=0, help="depth cut (0: full depth)")
     parser.add_argument("--remat", choices=("off", "full"), default="off")
+    parser.add_argument("--mesh", action="store_true",
+                        help="the mesh path on a (1, 1) mesh over a world of one rank")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import (SSD_TRAIN_CHUNK, TRAIN_BATCH, TRAIN_LEN, init_train_state,
-                            synthetic_data, train_rc)
+                            init_world_of_one, synthetic_data, train_rc)
     from profile_serve import busy_us, moe_ranges, report
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import to_device
+    from repro_torch.data.pipeline import shard_batch, to_device
     from repro_torch.optim.adamw import OptConfig, apply_updates
-    from repro_torch.runtime.train import TrainRunConfig, build_train_step, value_and_grad
+    from repro_torch.parallel.sharding import specs_of
+    from repro_torch.runtime.train import (TrainRunConfig, build_train_step, distribute,
+                                           value_and_grad)
 
     cfg = get_config(args.arch)
     if args.layers:
@@ -131,16 +140,25 @@ def main() -> int:
     remat = {} if args.remat == "off" else dict(remat=True, remat_policy=args.remat)
     rc = train_rc("cuda", ssd_chunk=SSD_TRAIN_CHUNK, **remat)
     trc = TrainRunConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=8))
-    step, *_, model = build_train_step(cfg, None, B=TRAIN_BATCH, S=TRAIN_LEN, rc=rc, trc=trc)
+    mesh = init_world_of_one() if args.mesh else None
+    step, _, _, st_sh, b_sh, model = build_train_step(cfg, mesh, B=TRAIN_BATCH, S=TRAIN_LEN,
+                                                      rc=rc, trc=trc)
     state = init_train_state(model)
     data = synthetic_data(cfg, TRAIN_BATCH, TRAIN_LEN)
-    batches = [to_device(next(data), "cuda") for _ in range(6)]
+    if mesh is None:
+        batches = [to_device(next(data), "cuda") for _ in range(6)]
+    else:
+        state = distribute(state, st_sh)
+        batches = [shard_batch(next(data), mesh, specs_of(b_sh)) for _ in range(6)]
     for b in batches[:2]:                     # warm-up at the measured shapes
         state, _ = step(state, b)
     torch.cuda.synchronize()
 
-    print(f"device: {torch.cuda.get_device_name(0)}; {cfg.name} layers={cfg.n_layers} "
-          f"B={TRAIN_BATCH} S={TRAIN_LEN} remat={args.remat} ssd_chunk={SSD_TRAIN_CHUNK}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)} ({smi}); {cfg.name} layers={cfg.n_layers} "
+          f"B={TRAIN_BATCH} S={TRAIN_LEN} remat={args.remat} ssd_chunk={SSD_TRAIN_CHUNK} "
+          f"mesh={None if mesh is None else tuple(mesh.shape)}")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def window(name, fn):
@@ -172,6 +190,8 @@ def main() -> int:
         torch.cuda.synchronize()
         print(json.dumps({"unprofiled_step_ms": (time.perf_counter() - t0) * 1e3,
                           "loss": float(met["loss"])}))
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -11,7 +11,12 @@ A checkpoint written by either package restores in the other:
     are written on a background thread (``wait()`` joins it);
   * atomic: files go to ``step_NNNNNNNN.tmp``, renamed to
     ``step_NNNNNNNN`` only after the manifest is written;
-  * retention: the ``keep`` most recent steps are kept.
+  * retention: the ``keep`` most recent steps are kept;
+  * sharded: a DTensor leaf is gathered whole (``full_tensor``, a
+    collective, so every rank of its mesh calls ``save``) and the mesh's
+    first rank writes the files; ``restore(..., shardings=)`` places each
+    leaf into its sharding's placements, on a mesh of any shape (the
+    files hold whole tensors).
 """
 from __future__ import annotations
 
@@ -23,7 +28,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.parallel.sharding import is_sharding, place
 from repro_torch.tree import tree_flatten_with_path, tree_rebuild
 
 
@@ -42,16 +50,23 @@ class Checkpointer:
     # ---- save ------------------------------------------------------------
     def save(self, state: Any, step: int, blocking: bool = False):
         """Copy every leaf of ``state`` to the host, then write (on a thread
-        unless ``blocking``)."""
+        unless ``blocking``). With DTensor leaves every rank of their mesh
+        calls it; only the mesh's first rank writes."""
         self.wait()
         host = {}
+        writer = True
         for k, v in tree_flatten_with_path(state).items():
+            if isinstance(v, DTensor):
+                writer = dist.get_rank() == int(v.device_mesh.mesh.min())
+                v = v.full_tensor()
             t = torch.as_tensor(v).detach()
             true_dtype = _dtype_name(t.dtype)
             if t.dtype == torch.bfloat16:        # not numpy-native
                 t = t.float()
             # a copy even on the CPU, so later writes to the state miss the file
             host[k] = (t.to("cpu", copy=True).numpy(), true_dtype)
+        if not writer:
+            return
 
         def write():
             tmp = self.dir / f"step_{step:08d}.tmp"
@@ -105,13 +120,18 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, target: Any, step: Optional[int] = None, device=None) -> Any:
+    def restore(self, target: Any, step: Optional[int] = None, shardings: Any = None,
+                device=None) -> Any:
         """Restore into the structure of ``target`` (tensors, meta tensors too).
 
-        Each leaf takes its manifest dtype and goes to ``device``, or to
-        its target leaf's device when ``device`` is None. Raises on a
-        shape mismatch and on a target leaf the checkpoint lacks; leaves
-        the target lacks are skipped.
+        Each leaf takes its manifest dtype. ``shardings``: an optional
+        tree matching ``target`` of ``parallel.sharding.NamedSharding``;
+        each leaf is then placed directly into its (possibly NEW mesh's)
+        placements, every rank keeping its own shard of the whole tensor
+        it read. Otherwise each leaf goes to ``device``, or to its target
+        leaf's device when ``device`` is None. Raises on a shape mismatch
+        and on a target leaf the checkpoint lacks; leaves the target lacks
+        are skipped.
         """
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -119,6 +139,8 @@ class Checkpointer:
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         flat_target = tree_flatten_with_path(target)
+        flat_sh = ({} if shardings is None else
+                   tree_flatten_with_path(shardings, is_leaf=is_sharding))
         restored = {}
         for key, spec in manifest["leaves"].items():
             if key not in flat_target:
@@ -128,11 +150,13 @@ class Checkpointer:
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint {arr.shape} vs "
                                  f"target {tuple(leaf.shape)}")
-            dev = device if device is not None else leaf.device
+            sh = flat_sh.get(key)
+            dev = sh.mesh.device_type if sh is not None else (
+                device if device is not None else leaf.device)
             if torch.device(dev).type == "meta":
                 raise ValueError(f"{key}: a meta target needs restore(..., device=)")
-            restored[key] = torch.from_numpy(arr).to(
-                device=dev, dtype=getattr(torch, spec["dtype"]))
+            val = torch.from_numpy(arr).to(device=dev, dtype=getattr(torch, spec["dtype"]))
+            restored[key] = val if sh is None else place(val, sh)
         missing = set(flat_target) - set(restored)
         if missing:
             raise ValueError(f"checkpoint missing leaves: {sorted(missing)[:5]}")

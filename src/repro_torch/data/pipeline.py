@@ -5,7 +5,7 @@ Markov twist (the next token depends on the current one) so that loss
 curves descend, offline and reproducibly. ``SyntheticLM`` makes the
 same ``np.random.default_rng`` calls in the same order as the JAX
 package's class, so its batches are bit-identical to the reference's.
-``to_device`` takes the place of ``shard_batch(batch, None)``.
+``shard_batch`` places a host batch on a mesh (``to_device`` without one).
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import NamedSharding, place
 
 
 @dataclass
@@ -72,6 +74,17 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """Host batch -> contiguous tensors on ``device``, dtypes kept (int32 stays int32)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh, specs=None, *, device="cuda"):
+    """Host batch -> DTensors on ``mesh`` in the placements of ``specs``
+    (a PartitionSpec per key, e.g. ``batch_specs``), or without a mesh
+    tensors on ``device``. Every rank holds the same host batch (one
+    seeded stream each), so each keeps its own rows and nothing is sent."""
+    if mesh is None:
+        return to_device(batch, device)
+    return {k: place(v, NamedSharding(mesh, specs[k]))
+            for k, v in to_device(batch, mesh.device_type).items()}
 
 
 class Prefetcher:

@@ -6,12 +6,15 @@
 // reads KV head h / (H / K), the reference's repeat_kv mapping, so K == H
 // is the reference's full-H call and K < H reads grouped (GQA) k/v as the
 // model projects it, with no repeated copy. Scale 1/sqrt(hd), causal mask
-// -1e30 (query i sees keys j <= i), online softmax with f32 running m / l
+// -1e30 (query i sees keys j <= q_off + i), online softmax with f32 running m / l
 // / acc, l clamped to >= 1e-30, output rounded to the input dtype. Beyond
 // the Pallas kernel's domain, any S and T work: the ragged edge is masked
 // here instead of asserting block divisibility. hd is 32, 64, 128 or 256
 // (the Pallas kernel's note gives 64..256 for the assigned archs; gemma-7b
-// has 256).
+// has 256). q_off makes local query row i global row q_off + i of the
+// causal mask: one rank's block of rows under q-sequence tensor
+// parallelism, against the full K/V (0 = the unsharded call). It moves
+// the causal bound, the skip of dead tiles and the mask alike.
 //
 // bf16 design (flash_mma_kernel, the serving path):
 //   * one CTA of 4 warps per (b * h, 64-row q tile), each warp owning 16
@@ -116,7 +119,7 @@ template <int HD>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 int S, int Tk, int H, int K, float scale, int causal) {
+                 int S, int Tk, int H, int K, float scale, int causal, int q_off) {
   constexpr int BK = kv_tile<HD>();
   constexpr bool QREG = q_in_registers<HD>();
   constexpr int LD = HD + 8;     // shared row stride in elements: 16 B of skew per row
@@ -138,6 +141,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int kvh = h / (H / K);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * MMA_BQ;   // heaviest tile first
   const int row0 = q0 + warp * 16;                        // this warp's first query row
+  const int grow0 = q_off + row0;                         // ... as a row of the causal mask
   const size_t q_stride = static_cast<size_t>(H) * HD;
   const size_t kv_stride = static_cast<size_t>(K) * HD;
   const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * S * H + h) * HD;
@@ -163,7 +167,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
   };
 
-  const int kv_end = causal ? min(Tk, q0 + MMA_BQ) : Tk;
+  const int kv_end = causal ? min(Tk, q_off + q0 + MMA_BQ) : Tk;
   const int n_tiles = (kv_end + BK - 1) / BK;
   load_kv(0, 0);
   mma::cp_async_commit();
@@ -192,7 +196,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
           mma::ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
       }
     }
-    if (causal && k0 > row0 + 15) continue;   // warp-uniform: all its rows precede the tile
+    if (causal && k0 > grow0 + 15) continue;  // warp-uniform: all its rows precede the tile
     const __nv_bfloat16* tk = sK + (it & 1) * BK * LD;
     const __nv_bfloat16* tv = sV + (it & 1) * BK * LD;
 
@@ -220,7 +224,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
     // scale (to base 2), mask (only tiles crossing the diagonal or the
     // ragged edge), online softmax
-    const bool masked = (k0 + BK > Tk) || (causal && k0 + BK - 1 > row0);
+    const bool masked = (k0 + BK > Tk) || (causal && k0 + BK - 1 > grow0);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < NTK; ++n) {
@@ -229,7 +233,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         float x = s[n][e] * scale2;
         if (masked) {
           const int key = k0 + n * 8 + 2 * t4 + (e & 1);
-          const int row = row0 + g + (e >> 1) * 8;
+          const int row = grow0 + g + (e >> 1) * 8;
           if (key >= Tk) x = -INFINITY;                 // past the ragged edge
           else if (causal && key > row) x = NEG_INF;    // the reference's mask
         }
@@ -322,7 +326,7 @@ template <int HD>
 __global__ void __launch_bounds__(BQ * (HD / 32))
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int S, int Tk, int H, int K, float scale, int causal) {
+                 int S, int Tk, int H, int K, float scale, int causal, int q_off) {
   constexpr int TPR = HD / 32;   // threads per query row
   constexpr int NT = BQ * TPR;   // threads per CTA
   constexpr int C4 = HD / 4;     // float4 columns per row
@@ -357,7 +361,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m = NEG_INF;
   float l = 0.f;
 
-  const int kv_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int kv_end = causal ? min(Tk, q_off + q0 + BQ) : Tk;
   for (int k0 = 0; k0 < kv_end; k0 += BKF) {
     __syncthreads();  // every thread is done with the previous tile
     for (int i = tid; i < BKF * C4; i += NT) {
@@ -397,7 +401,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int t = k0 + j0 + j;
         float x = s[j] * scale;
         if (t >= Tk) x = -INFINITY;                 // past the ragged edge
-        else if (causal && t > qi) x = NEG_INF;     // the reference's mask
+        else if (causal && t > q_off + qi) x = NEG_INF;   // the reference's mask
         s[j] = x;
         m_new = fmaxf(m_new, x);
       }
@@ -435,7 +439,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int Tk, int H, int K, int is_bf16, int causal, cudaStream_t stream) {
+                   int Tk, int H, int K, int is_bf16, int causal, int q_off,
+                   cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD)));
   if (is_bf16) {
     const dim3 grid(B * H, (S + MMA_BQ - 1) / MMA_BQ);
@@ -447,12 +452,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     kernel<<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Tk, H, K,
-        scale, causal);
+        scale, causal, q_off);
   } else {
     const dim3 grid(B * H, (S + BQ - 1) / BQ);
     flash_fwd_kernel<HD><<<grid, BQ * (HD / 32), 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H, K, scale, causal);
+        static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H, K, scale, causal,
+        q_off);
   }
   return cudaGetLastError();
 }
@@ -461,20 +467,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 // q, o: contiguous (B, S, H, hd); k, v: contiguous (B, Tk, K, hd) with
 // H % K == 0; all 16-byte aligned device arrays, all float32 (is_bf16 = 0)
-// or all bfloat16 (is_bf16 = 1); hd in {32, 64, 128, 256}. Launches on
+// or all bfloat16 (is_bf16 = 1); hd in {32, 64, 128, 256}; q_off >= 0 the
+// global row of q's first row in the causal mask. Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError()
 // (0 = launched).
 extern "C" int k1_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int Tk, int H, int K, int hd,
-                                      int is_bf16, int causal, void* stream) {
-  if (B <= 0 || S <= 0 || Tk <= 0 || H <= 0 || K <= 0 || H % K != 0)
+                                      int is_bf16, int causal, int q_off, void* stream) {
+  if (B <= 0 || S <= 0 || Tk <= 0 || H <= 0 || K <= 0 || H % K != 0 || q_off < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, st);
-    case 64: return launch<64>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, st);
-    case 128: return launch<128>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, st);
-    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, st);
+    case 32: return launch<32>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, q_off, st);
+    case 64: return launch<64>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, q_off, st);
+    case 128: return launch<128>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, q_off, st);
+    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, q_off, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,10 @@ Pallas kernel ``repro/kernels/flash_attention.py::_kernel``; its note
 gives the design and the bound. This module checks the inputs, allocates
 the output and launches it on PyTorch's current stream. k and v come in
 the model's grouped form (B, T, K, hd), H % K == 0: query head h reads
-KV head h // (H // K), and K == H is the full-H call. bf16 inputs run the
+KV head h // (H // K), and K == H is the full-H call. ``q_offset`` makes
+query row i global row ``q_offset + i`` of the causal mask: a rank's
+block of rows under q-sequence tensor parallelism, against the full k/v
+(without it, such a rank would mask the wrong keys). bf16 inputs run the
 tensor-core kernel, f32 inputs the scalar one. It takes CUDA tensors
 only; ``ops.attention`` sends a CPU tensor to the plain version,
 ``ref.attention_ref``.
@@ -33,7 +36,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 def _launcher():
     lib = _build.load("flash_attention")
     fn = lib.k1_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.k1_error_string.argtypes = [ctypes.c_int]
     lib.k1_error_string.restype = ctypes.c_char_p
@@ -73,14 +76,17 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd), k/v: (B, T, K, hd) with H % K == 0 -> (B, S, H, hd).
 
+    Query row i is global row ``q_offset + i`` of the causal mask.
     Launches K1 on the current stream and returns without synchronising.
-    Raises if the inputs are not ones the kernel takes, if the kernel
-    cannot be built, or if the launch is refused.
+    Raises if the inputs are not ones the kernel takes (a causal block at
+    an offset past the last key among them, ``ref.check_q_offset``), if
+    the kernel cannot be built, or if the launch is refused.
     """
     _check_inputs(q, k, v)
+    ref.check_q_offset(q.shape[1], k.shape[1], q_offset, causal)
     fn, error_string = _launcher()
     B, S, H, hd = q.shape
     out = torch.empty_like(q)
@@ -88,7 +94,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, S, k.shape[1], H, k.shape[2], hd, int(q.dtype == torch.bfloat16),
-                int(causal), stream)
+                int(causal), q_offset if causal else 0, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc} "
                            f"({error_string(rc).decode()})")
@@ -98,19 +104,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 class FlashAttentionFn(torch.autograd.Function):
     """K1 forward, tensor-op backward (``ref.attention_bwd``).
 
-    ``apply(q, k, v, causal)`` launches K1 once and saves q, k, v and
-    the output for the backward, which launches no K1.
+    ``apply(q, k, v, causal, q_offset=0)`` launches K1 once and saves q,
+    k, v and the output for the backward, which launches no K1.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        out = flash_attention(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal: bool, q_offset: int = 0):
+        out = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal = causal
+        ctx.causal, ctx.q_offset = causal, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = ref.attention_bwd(q, k, v, out, dout, causal=ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = ref.attention_bwd(q, k, v, out, dout, causal=ctx.causal,
+                                       q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None

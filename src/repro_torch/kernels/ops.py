@@ -26,19 +26,22 @@ from repro_torch.kernels import ssd_scan as ssd_mod
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Attention (B,S,H,hd) x (B,T,K,hd) x2 -> (B,S,H,hd), H % K == 0.
 
     Query head h reads KV head h // (H // K); K == H is the full-H form.
+    Query row i is global row ``q_offset + i`` of the causal mask (a
+    rank's block of rows against the full k/v); a causal call at an
+    offset with ``q_offset + S > T`` is refused (``ref.check_q_offset``).
     CUDA: K1 (``csrc/flash_attention.cu``) through ``FlashAttentionFn``.
     CPU: ``ref.attention_ref``, whose autograd is the reference's.
     """
     if q.device.type == "cuda":
-        out = fa.FlashAttentionFn.apply(q, k, v, causal)
+        out = fa.FlashAttentionFn.apply(q, k, v, causal, q_offset)
         attention.launches += 1
         return out
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal)
+        return ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     raise ValueError(f"attention runs on cuda or cpu tensors, not {q.device}")
 
 

@@ -17,6 +17,14 @@ computes it outside any Pallas kernel too. Cross-attention (the VLM's
 gated blocks over the image tokens) goes through ``ops.attention``
 non-causal in prefill and in decode, where one query attends to the N
 cached image keys.
+
+Under a mesh (``RunConfig.constrain`` from ``parallel.mesh``) q, k and v
+are DTensors, constrained as the JAX package constrains them: with
+``attn_shard="heads"`` each rank holds its q heads and the k/v heads
+they read, with ``"seq"`` a block of query rows against the full k/v.
+``_local_attention`` then runs the kernel on each rank's shards (the
+ctypes launch sees plain tensors) and wraps the output back with q's
+placements.
 """
 from __future__ import annotations
 
@@ -24,10 +32,13 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import repeat_kv  # noqa: F401  (the reference's broadcast)
-from repro_torch.models.layers import RunConfig, apply_rope, dense_init
+from repro_torch.kernels.ref import repeat_kv
+from repro_torch.models.layers import RunConfig, apply_rope, dense_init, linear
+from repro_torch.parallel.mesh import local_offset, shard_count, unshard_dim
 
 NEG_INF = -1e30
 
@@ -50,6 +61,11 @@ def init_attention(gen, cfg, dtype, device, cross: bool = False):
 
 
 def _split_heads(x, n, hd):
+    if n % shard_count(x, -1):
+        # a projection's columns sharded across head boundaries (n heads on
+        # a tp axis that n does not divide, the "seq" case): DTensor cannot
+        # split them into heads, so they are gathered first
+        x = unshard_dim(x, -1)
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
@@ -112,7 +128,7 @@ def _gqa_fold(q, n_kv):
     return q.reshape(B, S, n_kv, H // n_kv, hd)
 
 
-def decode_attention(q, k_cache, v_cache, index: int):
+def decode_attention(q, k_cache, v_cache, index: int, psum=None, head_dim=None):
     """Single-token decode, GQA-folded. q:(B,1,K,G,hd) caches:(B,T,K,hd).
 
     The scores are taken in f32 from the cache's values (the JAX package
@@ -121,9 +137,14 @@ def decode_attention(q, k_cache, v_cache, index: int):
     product: per layer and step that is an extra f32 copy of the K cache,
     4 * B*T*K*hd bytes written and read (2.4 MB for qwen2-0.5b at B=8,
     T=576), against 2 * B*T*K*hd bytes for reading the bf16 cache.
+    ``psum`` sums the scores over the ranks that hold the other slices of
+    head_dim, whose whole size ``head_dim`` then sets the scale
+    (``_local_decode``).
     """
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(head_dim or q.shape[-1])
     scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k_cache.float()) * scale
+    if psum is not None:
+        scores = psum(scores)
     valid = torch.arange(k_cache.shape[1], device=q.device) <= index
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
@@ -138,7 +159,91 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, index: int) -> None:
     is ever indexed out of bounds.
     """
     start = min(max(index, 0), cache.shape[1] - new.shape[1])
+    if isinstance(cache, DTensor):
+        # the write lands in each rank's shard of the cache, in place
+        if Shard(1) in cache.placements:
+            raise NotImplementedError("decode into a sequence-sharded cache")
+        new = new.redistribute(cache.device_mesh, cache.placements)
+        cache, new = cache.to_local(), new.to_local()
     cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
+
+
+# a (B, T, K, hd) cache's sharded dim -> that dim of q (B, 1, H, hd) and of
+# decode's output (B, 1, K, G, hd)
+_CACHE_TO_Q = {0: 0, 2: 2, 3: 3}
+_CACHE_TO_OUT = {0: 0, 2: 2, 3: 4}
+
+
+def _local_decode(q, k_cache, v_cache, index: int):
+    """``decode_attention`` on each rank's shard of a DTensor cache.
+
+    q (B, 1, H, hd) is placed as the cache is (its batch, its KV heads'
+    query heads, its slice of head_dim) and folded on each rank; where
+    the cache shards head_dim the scores are summed over those ranks. The
+    output (B, 1, K, G, hd) keeps the cache's placements. A cache sharded
+    on T (the long-context case) is refused: its slots live on other ranks.
+    """
+    mesh = k_cache.device_mesh
+    if any(isinstance(p, Shard) and p.dim not in _CACHE_TO_Q for p in k_cache.placements):
+        raise NotImplementedError("decode against a sequence-sharded cache")
+    q_pl = [Shard(_CACHE_TO_Q[p.dim]) if isinstance(p, Shard) else Replicate()
+            for p in k_cache.placements]
+    out_pl = [Shard(_CACHE_TO_OUT[p.dim]) if isinstance(p, Shard) else Replicate()
+              for p in k_cache.placements]
+    hd_dims = [i for i, p in enumerate(k_cache.placements) if p == Shard(3)]
+    ql, kl, vl = q.redistribute(mesh, q_pl).to_local(), k_cache.to_local(), v_cache.to_local()
+
+    def psum(scores):
+        scores = scores.clone()
+        for i in hd_dims:
+            dist.all_reduce(scores, group=mesh.get_group(i))
+        return scores
+    out = decode_attention(_gqa_fold(ql, kl.shape[2]), kl, vl, index,
+                           psum=psum if hd_dims else None, head_dim=q.shape[-1])
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
+def _merge_heads(x):
+    """(B, S, H, hd), or decode's (B, 1, K, G, hd) -> (B, S, H * hd).
+
+    A DTensor is merged on each rank's shard, keeping its placements, once
+    every merged dim but the first is whole (a sharded head_dim or G is
+    gathered first); its gradient is redistributed back into those
+    placements before the local reshape's backward, which the DTensor
+    reshape's own backward could not do from columns sharded across heads.
+    """
+    if not isinstance(x, DTensor):
+        return x.reshape(x.shape[:2] + (-1,))
+    for d in range(3, x.ndim):
+        x = unshard_dim(x, d)
+    local = x.to_local()
+    return DTensor.from_local(local.reshape(local.shape[:2] + (-1,)), x.device_mesh,
+                              x.placements, run_check=False)
+
+
+def _local_attention(q, k, v, *, causal: bool):
+    """``ops.attention`` on this rank's shards of constrained q, k, v.
+
+    Plain tensors go straight to ``ops.attention``. For DTensors: q's
+    rows start at global row ``local_offset(q, 1)`` of the causal mask
+    ("seq"); when q's heads are sharded and k/v are not (the rank's heads
+    straddle a GQA group), k/v are broadcast with ``repeat_kv`` and
+    sliced to those heads; else the rank's k/v heads are the ones its q
+    heads read. The k/v gradient is Partial on each mesh dim where q is
+    sharded and k/v are not: each rank's rows or heads add their share.
+    """
+    if not isinstance(q, DTensor):
+        return ops.attention(q, k, v, causal=causal)
+    grad = [Partial() if isinstance(qp, Shard) and isinstance(kp, Replicate) else kp
+            for qp, kp in zip(q.placements, k.placements)]
+    ql = q.to_local()
+    kl, vl = k.to_local(grad_placements=grad), v.to_local(grad_placements=grad)
+    H, Hl = q.shape[2], ql.shape[2]
+    if Hl != H and kl.shape[2] == k.shape[2] and k.shape[2] != H:
+        h0 = local_offset(q, 2)
+        kl, vl = (repeat_kv(t, H)[:, :, h0:h0 + Hl] for t in (kl, vl))
+    out = ops.attention(ql, kl, vl, causal=causal, q_offset=local_offset(q, 1))
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
 
 
 def apply_attention(
@@ -196,11 +301,24 @@ def apply_attention(
         _write_cache(k_cache, k, cache_index)
         _write_cache(v_cache, v, cache_index)
         new_kv = (k_cache, v_cache)
-        out = decode_attention(_gqa_fold(q, K), k_cache, v_cache, cache_index)
+        if isinstance(k_cache, DTensor):
+            out = _local_decode(q, k_cache, v_cache, cache_index)
+        else:
+            out = decode_attention(_gqa_fold(q, K), k_cache, v_cache, cache_index)
     else:
         if return_kv or cache is not None:
             new_kv = (k, v)
+        # 'heads': Megatron head-TP (needs H % tp == 0); the K-head k/v
+        #          are sharded alike when K % tp == 0, else replicated.
+        # 'seq':   query-sequence TP: each rank owns a q-row block against
+        #          the full k/v (picked when H doesn't divide the TP axis).
+        if rc.attn_shard == "seq":
+            q_axes, kv_axes = ("dp", "tp", None, None), ("dp", None, None, None)
+        else:
+            q_axes = kv_axes = ("dp", None, "tp", None)
+        q = rc.constrain(q, q_axes)
+        k, v = rc.constrain(k, kv_axes), rc.constrain(v, kv_axes)
         # ---- K-head k/v straight into K1 on the card: no repeat_kv copy ----
-        out = ops.attention(q, k, v, causal=causal)
-    out = out.reshape(out.shape[:2] + (H * hd,))
-    return out @ params["wo"], new_kv
+        out = rc.constrain(_local_attention(q, k, v, causal=causal), q_axes)
+    out = _merge_heads(out)
+    return linear(out, params["wo"]), new_kv

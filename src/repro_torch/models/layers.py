@@ -4,10 +4,16 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.mesh import reduce_partial, replicate_like, unshard_dim
+
+
+def _no_constrain(x, logical_axes):
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -24,10 +30,18 @@ class RunConfig:
     ``moe_group`` is the JAX package's too: the MoE layer routes its
     tokens in groups of ``min(moe_group, tokens)``, each with its own
     expert capacity (``moe.apply_moe``).
-    The JAX RunConfig's sharding and attention-dispatch knobs have no
-    counterpart yet: the port runs on one card, its full-H attention
-    always goes through ``kernels.ops.attention`` and its chunked SSD
-    scan through ``kernels.ops.ssd``.
+    The sharding hooks are the JAX package's too, injected by the
+    runtime when it is given a mesh (``parallel.mesh``): ``constrain(x,
+    logical_axes)`` redistributes an activation (the identity without a
+    mesh), ``attn_shard`` picks head ("heads") or query-row ("seq")
+    tensor parallelism in the attention, ``attn_exit_constrain`` also
+    constrains the residual stream after the attention, and
+    ``seq_shard_carry`` keeps the residual stream sequence-sharded on
+    the tp axis between blocks (Megatron-SP). The defaults leave every
+    path without a mesh as it was. The JAX RunConfig's attention-dispatch
+    knobs have no counterpart: the port's full-H attention always goes
+    through ``kernels.ops.attention`` and its chunked SSD scan through
+    ``kernels.ops.ssd``.
     """
 
     param_dtype: torch.dtype = torch.float32
@@ -37,6 +51,11 @@ class RunConfig:
     remat_policy: str = "none"        # none | dots | everything
     moe_group: int = 2048              # MoE dispatch group size (tokens)
     ssd_chunk: int = 0                 # SSD chunk override (0 = ArchConfig's)
+    attn_shard: str = "heads"          # 'heads' | 'seq' (q-sequence TP when
+                                       #  n_heads doesn't divide the TP axis)
+    attn_exit_constrain: bool = False  # constrain h after the attention residual too
+    seq_shard_carry: bool = False      # Megatron-SP: residual stream (B,S,D) on 'tp'
+    constrain: Callable = _no_constrain   # constrain(x, logical_axes) -> x
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
@@ -93,7 +112,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):
-    """x @ w with w stored (in, out), as in the JAX package."""
+    """x @ w with w stored (in, out), as in the JAX package.
+
+    A DTensor ``x`` sharded on a leading dim past the first (the sequence,
+    under q-sequence TP or Megatron-SP) has that dim gathered first: DTensor
+    flattens the leading dims for the product, and torch 2.11 refuses to
+    flatten a sharded dim that is not the first. A ``Partial`` ``x`` (the
+    residual stream after a row-parallel product) is summed first: DTensor
+    would sum the product later, at the next nonlinear op, into rows
+    sharded over that mesh dim, and fails on its own view of them where
+    they do not divide (8 rows on 7 ranks).
+    """
+    for d in range(1, x.dim() - 1):
+        x = unshard_dim(x, d)
+    x = reduce_partial(x)
     y = x @ w
     if b is not None:
         y = y + b
@@ -140,8 +172,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     head_dim = x.shape[-1]
     freqs = rope_freqs(head_dim, theta, device=x.device)        # (hd/2,)
     angles = positions[..., None].float() * freqs               # (..., S, hd/2)
-    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
+    cos = replicate_like(torch.cos(angles)[..., None, :], x)    # (..., S, 1, hd/2)
+    sin = replicate_like(torch.sin(angles)[..., None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -159,10 +191,12 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     receive no gradient.
     """
     vp = logits.shape[-1]
-    logits = logits.float()
+    # DTensor's gather of the gold logit from a vocab-sharded DTensor (a
+    # masked partial) fails on its reduction; the vocab is gathered first
+    logits = unshard_dim(logits, -1).float()
     if vp > vocab_size:
         pad_mask = torch.arange(vp, device=logits.device) >= vocab_size
-        logits = logits.masked_fill(pad_mask, -1e9)
+        logits = logits.masked_fill(replicate_like(pad_mask, logits), -1e9)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return logz - gold

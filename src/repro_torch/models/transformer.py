@@ -22,6 +22,12 @@ than its period (the hybrid's 38 = 6 * 6 + 2) gets no block after it.
 With ``RunConfig.remat`` each layer's block is checkpointed under a
 gradient (``_maybe_remat``), as the JAX package wraps its scan bodies;
 the hybrid's shared block is not, as in the JAX package.
+
+Under a mesh, ``RunConfig.constrain`` places the residual stream where
+the JAX package constrains it: batch on dp after the embedding, at each
+block's exit (and after the attention with ``attn_exit_constrain``),
+sequence-sharded on tp between blocks with ``seq_shard_carry``
+(gathered at each block's entry), and the logits' vocab on tp.
 """
 from __future__ import annotations
 
@@ -29,13 +35,14 @@ import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init,
-                                       init_mlp, rms_norm, softmax_cross_entropy)
+from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init, init_mlp,
+                                       linear, rms_norm, softmax_cross_entropy)
 
 # SSM / router leaves that stay f32 through compute-dtype casting
 _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "router", "gate")
@@ -181,28 +188,53 @@ def _n_cross(cfg) -> int:
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
+def _carry_axes(rc: RunConfig):
+    # Megatron-SP: the residual stream parks sequence-sharded on 'tp'
+    # between blocks (the axis is idle there).
+    return ("dp", "tp", None) if rc.seq_shard_carry else ("dp", None, None)
+
+
+def _enter(x, rc: RunConfig):
+    """SP block entry: ONE all-gather of the post-norm activations."""
+    if rc.seq_shard_carry:
+        return rc.constrain(x, ("dp", None, None))
+    return x
+
+
+def _residual_add(h, delta, rc: RunConfig, block_exit: bool = False):
+    """SP: reduce-scatter the block output into the sharded carry.
+    Without SP, constrain only at the block exit, or also after the
+    attention with ``attn_exit_constrain`` (the JAX package's)."""
+    if rc.seq_shard_carry:
+        delta = rc.constrain(delta, _carry_axes(rc))
+        return rc.constrain(h + delta, _carry_axes(rc))
+    if block_exit or rc.attn_exit_constrain:
+        return rc.constrain(h + delta, _carry_axes(rc))
+    return h + delta
+
+
 def _apply_attn_block(bp, h, cfg, rc, positions, *, cache=None, cache_index=None,
                       return_kv=False):
     """-> (h, kv, aux): aux is the MoE's aux loss, None for an MLP block."""
-    x1 = rms_norm(h, bp["ln1"], cfg.norm_eps)
+    x1 = _enter(rms_norm(h, bp["ln1"], cfg.norm_eps), rc)
     a, kv = attn_lib.apply_attention(
         bp["attn"], x1, cfg, rc, positions,
         cache=cache, cache_index=cache_index, return_kv=return_kv)
-    h = h + a
-    x2 = rms_norm(h, bp["ln2"], cfg.norm_eps)
+    h = _residual_add(h, a, rc)
+    x2 = _enter(rms_norm(h, bp["ln2"], cfg.norm_eps), rc)
     aux = None
     if "moe" in bp:
         m, aux = moe_lib.apply_moe(bp["moe"], x2, cfg, rc)
     else:
         m = apply_mlp(bp["mlp"], x2, gelu=cfg.gelu_mlp)
-    return h + m, kv, aux
+    return _residual_add(h, m, rc, block_exit=True), kv, aux
 
 
 def _apply_mamba_block(bp, h, cfg, rc, *, state=None, return_state=False):
-    x1 = rms_norm(h, bp["ln"], cfg.norm_eps)
+    x1 = _enter(rms_norm(h, bp["ln"], cfg.norm_eps), rc)
     y, new_state = ssm_lib.apply_mamba(bp["mamba"], x1, cfg, rc, state=state,
                                        return_state=return_state)
-    return h + y, new_state
+    return _residual_add(h, y, rc, block_exit=True), new_state
 
 
 def _apply_cross_block(bp, h, cfg, rc, img_embeds, *, cache=None):
@@ -246,7 +278,7 @@ def _maybe_remat(fn, rc: RunConfig):
 def _logits(params, h, cfg):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    logits = h @ head.T
+    logits = linear(h, head.T)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -255,10 +287,24 @@ def _logits(params, h, cfg):
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
+def _lookup(table, tokens):
+    """``table[tokens]``. On DTensors each rank looks up its own tokens in the
+    whole table (gathered), as DTensor's own index fails in its backward
+    with sharded indices (torch 2.11's index_put); the table's gradient is
+    then Partial over the mesh dims that shard the tokens."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in tokens.placements]
+    rows = whole.to_local(grad_placements=grad)[tokens.to_local()]
+    return DTensor.from_local(rows, mesh, tokens.placements, run_check=False)
+
+
 def _embed(params, cfg, rc: RunConfig, tokens, embeds):
     """The residual stream's input: ``embeds`` (B, S, D) cast to the compute
     dtype (audio frames), else the embedding rows of ``tokens`` (B, S)."""
-    h = embeds.to(rc.compute_dtype) if embeds is not None else params["embed"][tokens]
+    h = embeds.to(rc.compute_dtype) if embeds is not None else _lookup(params["embed"], tokens)
     if cfg.scale_embeddings:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=rc.compute_dtype)
     return h
@@ -286,7 +332,7 @@ def forward(params, cfg, rc: RunConfig, *, tokens: Optional[torch.Tensor] = None
     """
     _require_family(cfg)
     params = _cast_params(params, rc)
-    h = _embed(params, cfg, rc, tokens, embeds)
+    h = rc.constrain(_embed(params, cfg, rc, tokens, embeds), ("dp", None, None))
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     if cfg.family in ("ssm", "hybrid"):
@@ -299,7 +345,7 @@ def forward(params, cfg, rc: RunConfig, *, tokens: Optional[torch.Tensor] = None
         cache["pos"] = S
     if last_only:
         h = h[:, -1:, :]
-    return _logits(params, h, cfg), aux, cache
+    return rc.constrain(_logits(params, h, cfg), ("dp", None, "tp")), aux, cache
 
 
 def _attn_forward(params, cfg, rc, h, positions, img, return_cache):

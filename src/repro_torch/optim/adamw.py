@@ -3,7 +3,11 @@
 The JAX package's optimizer, functional as there: ``apply_updates``
 returns a new ``TrainState`` and leaves the old one as it was. Every
 scalar stays a device tensor (the step count too), so a step forces no
-host sync; the caller runs it under ``torch.no_grad``.
+host sync; the caller runs it under ``torch.no_grad``. On DTensor
+leaves the same code is sharded: each leaf's square sum is a Partial
+sum over its shards that DTensor reduces before the square root, so
+the clip norm is the global one, and every update is elementwise in its
+leaf's placements.
 """
 from __future__ import annotations
 

@@ -88,6 +88,27 @@ def tree_unflatten(tree, leaves: Iterable):
     return tree_rebuild(tree, dict(zip(keys, leaves)))
 
 
+def _walk_keys(t, keys: tuple, is_leaf: IsLeaf, out: List[Any]) -> None:
+    kids = _children(t, is_leaf)
+    if kids is None:
+        out.append((list(keys), t))
+        return
+    is_dict = isinstance(t, dict)
+    for part, sub in kids:
+        _walk_keys(sub, keys + (part,) if is_dict else keys, is_leaf, out)
+
+
+def tree_map_with_keys(fn: Callable, tree, is_leaf: IsLeaf = None):
+    """``fn(keys, leaf)`` leaf by leaf, ``keys`` the dict keys on the leaf's
+    path (JAX's ``DictKey`` entries: a NamedTuple field or a sequence index
+    adds none), as ``jax.tree_util.tree_map_with_path`` callers read them."""
+    out: List[Any] = []
+    _walk_keys(tree, (), is_leaf, out)
+    flat = tree_flatten_with_path(tree, is_leaf)
+    return tree_rebuild(tree, {k: fn(keys, leaf)
+                               for k, (keys, leaf) in zip(flat, out)}, is_leaf)
+
+
 def tree_map(fn: Callable, tree, *rest, is_leaf: IsLeaf = None):
     """``fn`` applied leaf by leaf over trees of one structure (the first's);
     ``is_leaf`` stops the walk at the nodes it accepts, as in ``jax.tree.map``."""

@@ -677,3 +677,87 @@ def test_forked_shard_worker_cannot_use_the_card(card):
         plane(True).run()
     assert time.monotonic() - t0 < 60.0
     assert "CUDA" in exc.value.reason
+
+
+# ---------------------------------------------------------------------------
+# K1 at a query offset, and the mesh path at world size 1
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_q_offset_matches_plain(card, tp, hd, dtype):
+    """Each rank's row block of a "seq" mesh (q_offset r * S / tp, against
+    the full k/v) against the plain version at that offset, forward (f32
+    1e-5, bf16 2e-2) and under a gradient (f32 1e-4, bf16 5e-2); together
+    the blocks give the unsharded K1's output at the forward's bound."""
+    B, S, H, K = 2, 256, 14, 2
+    gen = torch.Generator(device=card).manual_seed(5)
+    dt = TORCH_DTYPE[dtype]
+    q = torch.randn((B, S, H, hd), generator=gen, device=card).to(dt)
+    k, v = (torch.randn((B, S, K, hd), generator=gen, device=card).to(dt) for _ in range(2))
+    tol, gtol = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 5e-2)
+    n, blocks = S // tp, []
+    for r in range(tp):
+        qb = q[:, r * n:(r + 1) * n].contiguous().requires_grad_(True)
+        kb, vb = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        dout = torch.randn(qb.shape, generator=gen, device=card).to(dt)
+        before = ops.attention.launches
+        out = ops.attention(qb, kb, vb, causal=True, q_offset=r * n)
+        assert ops.attention.launches == before + 1
+        expect = ref.attention_ref(qb, kb, vb, causal=True, q_offset=r * n)
+        torch.testing.assert_close(out.float(), expect.float(), atol=tol, rtol=tol)
+        got = torch.autograd.grad(out, (qb, kb, vb), dout)
+        plain = torch.autograd.grad(expect, (qb, kb, vb), dout)
+        for g, e in zip(got, plain):
+            torch.testing.assert_close(g.float(), e.float(), atol=gtol, rtol=gtol)
+        blocks.append(out.detach())
+    whole = ops.attention(q, k, v, causal=True)
+    torch.testing.assert_close(torch.cat(blocks, 1).float(), whole.float(), atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.attention(q[:, :n].contiguous(), k, v, causal=True, q_offset=S - n + 1)
+
+
+@pytest.fixture
+def world_of_one(card):
+    """A default process group of one NCCL rank on this card, and its (1, 1) mesh."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_train_step_at_world_size_one_matches_no_mesh(card, world_of_one):
+    """The reduced qwen2-0.5b's f32 step on the (1, 1) mesh against the same
+    step without one: loss and params within 1e-6, 4 K1 launches each."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.parallel.sharding import specs_of
+    from repro_torch.runtime.train import distribute
+    from repro_torch.tree import tree_flatten_with_path
+    mesh = world_of_one
+    cfg = get_config("qwen2-0.5b").reduced()
+    rc = RunConfig(compute_dtype=torch.float32, device="cuda")
+    trc = TrainRunConfig(opt=OptConfig(lr=1e-3, warmup_steps=0))
+    batch = {k: np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    step, *_, model = build_train_step(cfg, None, B=4, S=64, rc=rc, trc=trc)
+    mstep, _, _, st_sh, b_sh, _ = build_train_step(cfg, mesh, B=4, S=64, rc=rc, trc=trc)
+    state = init_sharded_state(model, None)
+    before = ops.attention.launches
+    new, met = step(state, {k: torch.from_numpy(v).to(card) for k, v in batch.items()})
+    assert ops.attention.launches == before + cfg.n_layers
+    mnew, mmet = mstep(distribute(state, st_sh), shard_batch(batch, mesh, specs_of(b_sh)))
+    assert ops.attention.launches == before + 2 * cfg.n_layers
+    assert abs(float(mmet["loss"]) - float(met["loss"])) <= 1e-6 * abs(float(met["loss"]))
+    got = tree_flatten_with_path(mnew.params)
+    for k, p in tree_flatten_with_path(new.params).items():
+        torch.testing.assert_close(got[k].full_tensor(), p, atol=1e-6, rtol=0)

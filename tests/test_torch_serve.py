@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +38,7 @@ from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.convert import cache_from_jax, params_from_jax  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import RunConfig, build  # noqa: E402
+from repro_torch.parallel.mesh import P  # noqa: E402
 from repro_torch.runtime.serve import build_decode_step, build_prefill_step  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -298,10 +300,14 @@ def test_serve_steps_match_the_model():
 def test_out_of_slice_paths_raise():
     cfg = get_config("qwen2-0.5b").reduced()
     rc = RunConfig(device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        build_prefill_step(cfg, object(), B=1, S=4, rc=rc)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        build_decode_step(cfg, ShapeConfig("d", "decode", 4, 1), object(), rc=rc)
+    # a mesh gives the shardings (the spec functions read only its axis sizes)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
+    *_, p_sh, _ = build_prefill_step(cfg, mesh, B=2, S=4, rc=rc)
+    assert p_sh["blocks"]["attn"]["wo"].spec == P(None, "model", "data")
+    *_, (p_sh, c_sh, b_sh), _ = build_decode_step(cfg, ShapeConfig("d", "decode", 4, 2),
+                                                  mesh, rc=rc)
+    assert c_sh["k"].spec == P(None, "data", None, "model", None) and c_sh["pos"].spec == P()
+    assert b_sh["tokens"].spec == P("data", None)
     # every family builds now; an unknown one raises ValueError, as in the JAX package
     model = build(dataclasses.replace(cfg, family="diffusion"), rc)
     for call in (lambda: model.init(torch.Generator().manual_seed(0)),
@@ -331,7 +337,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 74, mods\n"
+        "assert len(mods) >= 80, mods\n"
         "named = {'repro_torch.optim.adamw', 'repro_torch.parallel.compression',\n"
         "         'repro_torch.runtime.train', 'repro_torch.data.pipeline',\n"
         "         'repro_torch.checkpoint.checkpointer', 'repro_torch.tree',\n"
@@ -343,7 +349,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "         'repro_torch.configs.musicgen_medium', 'repro_torch.configs.llama32_vision_11b',\n"
         "         'repro_torch.examples.serve_batch', 'repro_torch.examples.workflow_train',\n"
         "         'repro_torch.examples.quickstart', 'repro_torch.examples.multi_workflow',\n"
-        "         'repro_torch.core', 'repro_torch.core.policy'}\n"
+        "         'repro_torch.core', 'repro_torch.core.policy',\n"
+        "         'repro_torch.parallel.mesh', 'repro_torch.parallel.sharding',\n"
+        "         'repro_torch.parallel.overlap', 'repro_torch.runtime.elastic',\n"
+        "         'repro_torch.launch', 'repro_torch.launch.mesh'}\n"
         "named |= {f'repro_torch.core.{m}' for m in (\n"
         "    'autoscaler', 'baselines', 'calibration', 'chaos', 'cluster', 'dag',\n"
         "    'descheduler', 'engine', 'events', 'gateway', 'informer', 'injector',\n"

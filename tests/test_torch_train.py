@@ -24,6 +24,7 @@ found from both frameworks' raw gradients, are held to one quantum's
 effect; every other element to 1e-4.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -46,6 +47,7 @@ from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.optim import adamw as ta  # noqa: E402
 from repro_torch.parallel import compression as tcomp  # noqa: E402
+from repro_torch.parallel.mesh import P  # noqa: E402
 from repro_torch.runtime import train as ttrain  # noqa: E402
 from repro_torch.runtime.specs import train_batch_specs  # noqa: E402
 from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,  # noqa: E402
@@ -392,10 +394,13 @@ def test_build_train_step_meta_and_mesh():
     assert {k: (tuple(v.shape), v.dtype) for k, v in batch_meta.items()} == \
         {"tokens": ((2, 8), torch.int32), "labels": ((2, 8), torch.int32)}
     assert all(t.device.type == "meta" for t in train_batch_specs(tc, 2, 8).values())
-    with pytest.raises(NotImplementedError, match="parallel"):
-        ttrain.build_train_step(tc, object(), B=2, S=8, rc=rc)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        ttrain.init_sharded_state(model, object(), None)
+    # a mesh gives the shardings (the spec functions read only its axis sizes)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
+    *_, st_sh, b_sh, sharded = ttrain.build_train_step(tc, mesh, B=2, S=8, rc=rc)
+    assert sharded.rc.attn_shard == "heads" and sharded.rc.constrain is not rc.constrain
+    assert st_sh.params["blocks"]["attn"]["wq"].spec == P(None, "data", "model")
+    assert st_sh.m["embed"].spec == st_sh.params["embed"].spec == P("model", "data")
+    assert st_sh.step.spec == P() and b_sh["tokens"].spec == P("data", None)
     with pytest.raises(ValueError):
         ttrain.TrainRunConfig(compression="fp8")
     with pytest.raises(ValueError):
