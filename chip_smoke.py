@@ -35,7 +35,10 @@ Phases; any failure exits non-zero and prints no result line:
    dtypes chose (``mma``: tensor cores, bf16 x and B/C; ``scalar``: any
    f32 operand). Both prefill shapes are timed beside ``ssd_chunked``
    and the bound (and mamba2's beside ``ssd_ref``; no single PyTorch
-   call computes it).
+   call computes it). Each kernel launches through its operator
+   (``repro_torch::k1_fwd`` / ``k2_fwd``, which ``ops`` reaches through
+   the autograd Functions); at qwen2-0.5b's and mamba2-2.7b's prefill
+   shapes the launcher alone is timed beside it, queued and host-paced.
 3. Serve: full-width qwen2-0.5b, qwen2-1.5b, mamba2-2.7b, zamba2-1.2b (hybrid: 38
    Mamba2 layers and one shared attention block applied after every
    6th), gemma-7b (head_dim 256), qwen2-moe-a2.7b (60 routed experts
@@ -211,15 +214,31 @@ Phases; any failure exits non-zero and prints no result line:
    every 5, then a new runner on the same directory restores step 10 and
    takes 2 more with finite losses; that checkpoint restored into the
    (1, 1) mesh's placements (``restore(shardings=)``) is bit-equal to a
-   plain restore.
-11. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
+   plain restore. (e) zamba2-1.2b (full width and depth) served on the
+   mesh: {6 K1, 38 K2} a prefill, as without it, and [3]'s tokens. (f)
+   qwen2-moe-a2.7b, musicgen-medium and llama-3.2-vision-11b served on the
+   mesh at full width and depth, [3]'s request: ``expected_launches`` and
+   [3]'s tokens. (g) zamba2-1.2b's 8 train
+   steps on the mesh under [7]'s settings: losses within
+   ``MESH_STEP_TOL`` of [7] (b)'s (bit-equal printed), {6, 76} launches a
+   step; then K2 as each rank of a model=4 mesh runs it on its local
+   heads (mamba2-2.7b 80 -> 20, zamba2-1.2b 64 -> 16), bit-equal to those
+   heads of the whole call in bf16 and f32, timed beside its bound.
+11. The dry run (``python -m repro_torch.launch.dryrun`` in a
+   subprocess, ``fake`` backend, 256 ranks, meta tensors): qwen2-0.5b
+   ``train_4k`` at full depth and ``prefill_32k`` of each other family
+   at one segment; per device FLOPs, collective and argument bytes and
+   the roofline terms (arithmetic on data-sheet peaks); an erring cell
+   fails the run.
+12. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the served models' prefills, ``launches_by_arch`` per model,
    ``decode_launches_per_step_by_arch`` where a decode step launches it,
    ``at`` its numbers at each model's prefill shape (K1's also at the
    vlm's cross shapes, and under a gradient at the cross prefill shape
    and at gemma-7b's, and at the q offset of phase 10),
    and K2's at its train shapes; ``train_launches_per_step_by_arch`` per
-   trained model; K1's also per workflow pod and on the mesh path), the
+   trained model; K1's also per workflow pod and on the mesh path, by
+   arch; K2's on the mesh path and at a model=4 rank's local heads), the
    ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line.
 
@@ -353,6 +372,17 @@ OFFSET_TPS = (2, 4)               # row blocks of qwen2-0.5b's prefill, one per 
 OFFSET_TIMED = (4, 3)             # (tp, rank): the 128-row block at q_offset 384
 OFFSET_WHOLE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # the blocks vs the unsharded K1
 MESH_STEP_TOL = 1e-4              # mesh train losses vs [5]'s (tests/test_torch_train.py)
+# the other families served on the (1, 1) mesh, [3]'s request each (the same
+# decode steps: a bf16 decode's rounding depends on the cache's length)
+MESH_SERVE_ARCHS = ("zamba2-1.2b", "qwen2-moe-a2.7b", "musicgen-medium",
+                    "llama-3.2-vision-11b")
+K2_LOCAL_TP = 4                   # K2 on the local heads of a rank of a model=4 mesh
+# phase 11: the dry run's cells, traced in a subprocess on the fake backend
+DRYRUN_FULL = ("qwen2-0.5b", "train_4k")          # at full depth
+DRYRUN_SEGMENT_SHAPE = "prefill_32k"               # each other family, one segment
+DRYRUN_SEGMENT_ARCHS = ("gemma-7b", "qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-1.2b",
+                        "musicgen-medium", "llama-3.2-vision-11b")
+DRYRUN_TIMEOUT_S = 420
 ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_MORE = 10, 5, 2
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
@@ -442,6 +472,7 @@ def check_k1(gen) -> dict:
     prefill shape (``K1_SHAPES``, causal) and the vlm's cross-attention
     shapes (``K1_CROSS_SHAPES``, not causal)."""
     import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -529,8 +560,18 @@ def check_k1(gen) -> dict:
               f"{bound_ms / ms:.1%} of the bound", flush=True)
     q, k, v, _ = timed[ARCH]
     paced_ms = time_ms(lambda: ops.attention(q, k, v, causal=True), queued=False)
+    # the launcher alone, without the operator repro_torch::k1_fwd that
+    # FlashAttentionFn calls: what the dispatcher's hop costs
+    launcher_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    launcher_paced_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                                queued=False)
     print(f"  K1 at {ARCH}'s prefill shape, paced by the host (back-to-back calls "
-          f"without a queued start): {paced_ms:.4f} ms a call", flush=True)
+          f"without a queued start): {paced_ms:.4f} ms a call; through the operator "
+          f"repro_torch::k1_fwd (ops.attention) {at[ARCH]['ms']:.4f} ms queued, the "
+          f"launcher alone {launcher_ms:.4f} ms queued, {launcher_paced_ms:.4f} ms paced",
+          flush=True)
+    at[ARCH].update(paced_ms=paced_ms, launcher_ms=launcher_ms,
+                    launcher_paced_ms=launcher_paced_ms)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:31",
@@ -676,8 +717,16 @@ def check_k2(gen) -> dict:
     chunk = K2_SHAPES[SSM_ARCH][-1]
     paced_ms = time_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk), queued=False)
     ref_ms = time_ms(lambda: ref.ssd_ref(x, dt, A, B, C), iters=3, warmup=1)
+    # the launcher alone, without the operator repro_torch::k2_fwd
+    launcher_ms = time_ms(lambda: ssd_mod.ssd_scan(x, dt, A, B, C, chunk=chunk))
+    launcher_paced_ms = time_ms(lambda: ssd_mod.ssd_scan(x, dt, A, B, C, chunk=chunk),
+                                queued=False)
     print(f"  K2 at {SSM_ARCH}'s prefill shape: paced by the host {paced_ms:.4f} ms a "
-          f"call; ssd_ref {ref_ms:.4f} ms", flush=True)
+          f"call; ssd_ref {ref_ms:.4f} ms; through the operator repro_torch::k2_fwd "
+          f"(ops.ssd) {at[SSM_ARCH]['ms']:.4f} ms queued, the launcher alone "
+          f"{launcher_ms:.4f} ms queued, {launcher_paced_ms:.4f} ms paced", flush=True)
+    at[SSM_ARCH].update(paced_ms=paced_ms, launcher_ms=launcher_ms,
+                        launcher_paced_ms=launcher_paced_ms)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:35",
@@ -815,8 +864,10 @@ def serve(cfg, *, device: str, batch: int, prompt_len: int, decode_steps: int,
     request, frames = make_request(cfg, batch, prompt_len, device, steps=decode_steps)
     if mesh is not None:
         params = distribute(params, p_sh)
-        b_sh = shardings[2]["tokens"]          # the batch dim on dp, as every input's
+        b_sh = next(iter(shardings[2].values()))   # the batch dim on dp, as every input's
         request = distribute(request, {k: b_sh for k in request})
+        if frames is not None:
+            frames = distribute({"f": frames}, {"f": b_sh})["f"]
 
     # warm-up at the timed shapes (GEMM plans, allocator pools), not timed
     warm_logits, warm_cache = prefill(params, request)
@@ -1453,11 +1504,11 @@ def grads_vs_plain(cfg, *, device: str, batch: int, seq_len: int) -> dict:
 
 
 def train_and_check(phase: str, cfg, label: str, *, steps: int, rc,
-                    lr: float = TRAIN_7_LR) -> dict:
+                    lr: float = TRAIN_7_LR, losses_out: Optional[list] = None) -> dict:
     """``train`` ``cfg`` (8 x 512 tokens a step, peak learning rate ``lr``)
     under ``rc``; print each step and the run, and check a finite, falling
     loss and ``expected_train_launches`` every step. Returns the launches a
-    step."""
+    step; the losses are appended to ``losses_out`` when given."""
     import torch
     tr = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=steps,
                rc=rc, lr=lr)
@@ -1472,6 +1523,8 @@ def train_and_check(phase: str, cfg, label: str, *, steps: int, rc,
           f"{tr['tokens_per_s']:.1f} trained tokens/s, max_memory_allocated "
           f"{tr['max_memory_allocated']} B", flush=True)
     losses = [m["loss"] for m in tr["metrics"]]
+    if losses_out is not None:
+        losses_out.extend(losses)
     _check(all(np.isfinite(losses)) and all(np.isfinite([m["grad_norm"]
                                                           for m in tr["metrics"]])),
            f"{label}: non-finite loss or grad norm")
@@ -1908,6 +1961,92 @@ def check_k1_offset(gen) -> dict:
     return out
 
 
+def check_k2_local_heads(gen) -> dict:
+    """K2 as each rank of a model=``K2_LOCAL_TP`` mesh runs it
+    (``ssm._local_ssd``: its heads of x, dt, A, B/C whole), at the prefill
+    shapes of ``K2_SHAPES`` in bf16 and f32: every rank's call bit-equal to
+    those heads of the whole call (y and the final state), rank 0's held
+    against the plain version and timed beside its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.ssm import ssd_chunked
+    at = {}
+    for arch, (b, s, h, p, n, chunk) in K2_SHAPES.items():
+        hl = h // K2_LOCAL_TP
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, A, B, C, _ = ssd_inputs(gen, b, s, h, p, n, dtype, dtype)
+            y, st = ops.ssd(x, dt, A, B, C, chunk=chunk)
+            equal = True
+            for r in range(K2_LOCAL_TP):
+                sl = slice(r * hl, (r + 1) * hl)
+                local = [t[:, :, sl].contiguous() for t in (x, dt)] + [A[sl].contiguous()]
+                yl, stl = ops.ssd(*local, B, C, chunk=chunk)
+                equal &= torch.equal(yl, y[:, :, sl]) and torch.equal(stl, st[:, sl])
+            local = [t[:, :, :hl].contiguous() for t in (x, dt)] + [A[:hl].contiguous()]
+            yl, stl = ops.ssd(*local, B, C, chunk=chunk)
+            y_c, st_c = ssd_chunked(*local, B, C, chunk)
+            tol = K2_REF_TOL[_dtype_name(dtype)] if dtype == torch.bfloat16 else K2_CHUNKED_TOL
+            err = max(_k2_err(f"{arch} local heads ({hl} of {h}) y vs ssd_chunked", yl, y_c,
+                              tol),
+                      _k2_err(f"{arch} local heads state vs ssd_chunked", stl, st_c, tol))
+            _check(equal, f"K2 on {arch}'s local heads differs from the whole call's heads")
+            if dtype != torch.bfloat16:
+                continue
+            ms = time_ms(lambda: ops.ssd(*local, B, C, chunk=chunk))
+            plain_ms = time_ms(lambda: ssd_chunked(*local, B, C, chunk), iters=10, warmup=2)
+            bound_ms, bound_by = ssd_bound(b, s, hl, p, n, chunk, dtype, dtype)
+            label = f"{arch}, a model={K2_LOCAL_TP} rank's local heads"
+            at[label] = {"shape": "b,s,h,p,n,chunk=" + ",".join(map(str, (b, s, hl, p, n,
+                                                                          chunk))),
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                         "bit_equal_to_the_whole_call": equal}
+            print(f"[10] (g) K2 on {label} ({at[label]['shape']}, bf16): {ms:.4f} ms, plain "
+                  f"ssd_chunked {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{bound_ms / ms:.1%} of the bound; each of the {K2_LOCAL_TP} ranks' calls "
+                  f"bit-equal to its heads of the whole call (bf16 and f32): {equal}",
+                  flush=True)
+    return at
+
+
+def dry_run_cells() -> list:
+    """Phase 11: ``python -m repro_torch.launch.dryrun`` in a subprocess on
+    the ``fake`` backend (256 ranks, meta tensors, nothing launched):
+    ``DRYRUN_FULL`` at full depth, then ``DRYRUN_SEGMENT_SHAPE`` of each of
+    ``DRYRUN_SEGMENT_ARCHS`` cut to one segment. Prints each cell's
+    per-device numbers; an erring cell fails the run."""
+    cells = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        for args in (["--arch", DRYRUN_FULL[0], "--shape", DRYRUN_FULL[1]],
+                     ["--arch", ",".join(DRYRUN_SEGMENT_ARCHS), "--shape",
+                      DRYRUN_SEGMENT_SHAPE, "--segment"]):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                                  "--out", out], capture_output=True, text=True,
+                                 timeout=DRYRUN_TIMEOUT_S, cwd=str(ROOT),
+                                 env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            print(f"[11] python -m repro_torch.launch.dryrun {' '.join(args)}: exit "
+                  f"{run.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
+            _check(run.returncode == 0, f"the dry run failed:\n{run.stdout[-3000:]}\n"
+                   f"{run.stderr[-3000:]}")
+        for path in sorted(Path(out).glob("*.json")):
+            c = json.loads(path.read_text())
+            _check(c["status"] == "ok", f"dry-run cell {path.stem}: {c}")
+            per, ma, rf = c["trace_per_device"], c["memory_analysis"], c["roofline"]
+            print(f"[11] {c['arch']} x {c['shape']} ({c['n_layers']} layers) on {c['mesh']} "
+                  f"({c['n_chips']} ranks, traced in {c['trace_s']} s): per device "
+                  f"{per['flops']:.4e} FLOPs, collectives "
+                  f"{json.dumps({k: round(v) for k, v in per['collective_bytes'].items()})} B, "
+                  f"arguments {ma['argument_bytes']} B, temp {ma['temp_bytes']} B; "
+                  f"roofline terms (arithmetic on the data-sheet peaks) compute "
+                  f"{rf['compute_s'] * 1e3:.3f} ms, memory {rf['memory_s'] * 1e3:.3f} ms, "
+                  f"collective {rf['collective_s'] * 1e3:.3f} ms, dominant {rf['dominant']}; "
+                  f"useful_flops_ratio {c['useful_flops_ratio']:.3f}", flush=True)
+            cells.append(c)
+    _check(len(cells) == 1 + len(DRYRUN_SEGMENT_ARCHS), f"{len(cells)} dry-run cells")
+    return cells
+
+
 def init_world_of_one():
     """The default process group of one rank on this card (NCCL, a free
     localhost port) and the (data=1, model=1) mesh over it."""
@@ -1967,12 +2106,19 @@ def elastic_resume(cfg, *, device: str, mesh, ckpt_dir, batch: int, seq_len: int
             "restore_shardings_equal": equal, "placements": placements}
 
 
-def mesh_paths(cfg, trained: dict, served_tokens, t_phase: float) -> dict:
+def mesh_paths(cfg, trained: dict, served_tokens: dict, serve_ms: dict,
+               hybrid_losses: list, remat_rc, t_phase: float) -> dict:
     """Phase 10: the mesh paths of training and serving and the elastic
     runner on one card, a world of one NCCL rank; its counts set to 0
-    before each run. Returns the mesh path's launch counts."""
+    before each run: (b)-(d) qwen2-0.5b's, then (e), (f) the
+    ``MESH_SERVE_ARCHS`` served against [3]'s tokens (``served_tokens``;
+    [3]'s times ``serve_ms`` printed beside),
+    (g) zamba2-1.2b's train steps against [7]'s losses (``hybrid_losses``,
+    under ``remat_rc``) and K2 on a model=4 rank's local heads. Returns
+    the mesh path's launch counts and numbers."""
     import torch
     import torch.distributed as dist
+    from repro_torch.configs import get_config
 
     mesh = init_world_of_one()
     print(f"[10] world of {dist.get_world_size()} ({dist.get_backend()}), mesh "
@@ -1998,12 +2144,11 @@ def mesh_paths(cfg, trained: dict, served_tokens, t_phase: float) -> dict:
     _check(diff <= MESH_STEP_TOL, f"mesh train losses {losses} vs no mesh {plain}")
     _check(all(la == per_step for la in res["launches_per_step"]),
            f"mesh train steps launched {res['launches_per_step']}, not {per_step} each")
-    mesh_train = {"median_step_ms": res["median_step_ms"],
-                  "no_mesh_median_step_ms": trained["median_step_ms"],
-                  "max_memory_allocated": res["max_memory_allocated"],
-                  "losses_max_rel_diff": diff, "losses_bit_equal": losses == plain}
+    mesh_train = {ARCH: {"median_step_ms": res["median_step_ms"],
+                         "no_mesh_median_step_ms": trained["median_step_ms"],
+                         "max_memory_allocated": res["max_memory_allocated"],
+                         "losses_max_rel_diff": diff, "losses_bit_equal": losses == plain}}
     train_launches = res["launches_per_step"][0]["attention"]
-    del res
     torch.cuda.empty_cache()
     t_phase = _phase_done(10, t_phase, "(b)")
 
@@ -2019,7 +2164,7 @@ def mesh_paths(cfg, trained: dict, served_tokens, t_phase: float) -> dict:
           f"{plain['decode_ms_per_step']:.3f} ms/step), launches: prefill "
           f"{sv['prefill_launches']}, request {sv['request_launches']}; greedy tokens equal "
           f"to that no-mesh run's: {same} (to [3]'s, earlier in the process: "
-          f"{torch.equal(sv['tokens'].cpu(), served_tokens)})", flush=True)
+          f"{torch.equal(sv['tokens'].cpu(), served_tokens[ARCH])})", flush=True)
     _check(same, "the mesh path's greedy tokens differ from the no-mesh serve's")
     _check(sv["prefill_launches"] == per_step and sv["request_launches"] == per_step,
            f"mesh serve launched {sv['prefill_launches']}, {sv['request_launches']}")
@@ -2029,8 +2174,11 @@ def mesh_paths(cfg, trained: dict, served_tokens, t_phase: float) -> dict:
                 "prefill": sv["prefill_launches"]["attention"],
                 "decode_per_step": (sv["request_launches"]["attention"]
                                     - sv["prefill_launches"]["attention"]) / DECODE_STEPS}
-    mesh_serve = {**{k: sv[k] for k in ("prefill_ms", "decode_ms_per_step")},
-                  **{f"no_mesh_{k}": plain[k] for k in ("prefill_ms", "decode_ms_per_step")}}
+    mesh_serve = {ARCH: {**{k: sv[k] for k in ("prefill_ms", "decode_ms_per_step")},
+                         **{f"no_mesh_{k}": plain[k]
+                            for k in ("prefill_ms", "decode_ms_per_step")}}}
+    launches_by_arch = {ARCH: {"prefill": sv["prefill_launches"],
+                               "train_per_step": res["launches_per_step"][0]}}
     del sv, plain
     torch.cuda.empty_cache()
     t_phase = _phase_done(10, t_phase, "(c)")
@@ -2052,10 +2200,75 @@ def mesh_paths(cfg, trained: dict, served_tokens, t_phase: float) -> dict:
            and run2["final_step"] == ELASTIC_STEPS + ELASTIC_MORE
            and all(np.isfinite(run2["losses"])), f"elastic resume: {run2}")
     _check(el["restore_shardings_equal"], "restore(shardings=) differs from a plain restore")
-    dist.destroy_process_group()
+    t_phase = _phase_done(10, t_phase, "(d)")
+
+    # (e), (f): the other families served on the mesh, tokens against [3]'s
+    for arch in MESH_SERVE_ARCHS:
+        part = "e" if arch == HYBRID_ARCH else "f"
+        fam = get_config(arch)
+        sv = serve(fam, device="cuda", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+                   decode_steps=DECODE_STEPS, mesh=mesh)
+        expect, per_step = expected_launches(fam), expected_decode_launches(fam)
+        expect_request = {k: n + DECODE_STEPS * per_step[k] for k, n in expect.items()}
+        differ = int((sv["tokens"].cpu() != served_tokens[arch]).sum())
+        same = differ == 0
+        print(f"[10] ({part}) {arch} served on the (1, 1) mesh: {SERVE_BATCH} requests of "
+              f"{PROMPT_LEN} tokens + {DECODE_STEPS} decode steps: prefill "
+              f"{sv['prefill_ms']:.3f} ms, decode {sv['decode_ms_per_step']:.3f} ms/step "
+              f"([3]: {serve_ms[arch][0]:.3f} ms, {serve_ms[arch][1]:.3f} ms/step), "
+              f"max_memory_allocated {sv['max_memory_allocated']} B; launches: prefill "
+              f"{sv['prefill_launches']}, request {sv['request_launches']}; greedy tokens "
+              f"equal to [3]'s: {same} ({differ} differ)", flush=True)
+        _check(same, f"{arch}: the mesh path's greedy tokens differ from [3]'s")
+        _check(sv["prefill_launches"] == expect and sv["request_launches"] == expect_request,
+               f"{arch} mesh serve launched {sv['prefill_launches']}, "
+               f"{sv['request_launches']}, not {expect}, {expect_request}")
+        mesh_serve[arch] = {**{k: sv[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                                  "max_memory_allocated")},
+                            "no_mesh_prefill_ms": serve_ms[arch][0],
+                            "no_mesh_decode_ms_per_step": serve_ms[arch][1]}
+        launches_by_arch[arch] = {"prefill": sv["prefill_launches"],
+                                  "decode_per_step": per_step}
+        del sv
+        torch.cuda.empty_cache()
+        t_phase = _phase_done(10, t_phase, f"({part}) {arch}")
+
+    # (g): zamba2-1.2b's train steps on the mesh against [7]'s; K2 on local heads
+    hyb = get_config(HYBRID_ARCH)
+    tr = train(hyb, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=TRAIN_STEPS,
+               rc=remat_rc, lr=TRAIN_7_LR, mesh=mesh)
+    losses = [m["loss"] for m in tr["metrics"]]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(losses, hybrid_losses))
+    per_step = expected_train_launches(hyb, remat_rc)
+    print(f"[10] (g) {HYBRID_ARCH} on the (1, 1) mesh, remat \"full\", ssd_chunk "
+          f"{remat_rc.ssd_chunk}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens: "
+          f"losses {losses} ([7] (b): {hybrid_losses}; max rel diff {diff:.3e}, tol "
+          f"{MESH_STEP_TOL:g}, bit-equal {losses == hybrid_losses}); median step (2-"
+          f"{TRAIN_STEPS}) {tr['median_step_ms']:.3f} ms, max_memory_allocated "
+          f"{tr['max_memory_allocated']} B; launches a step {tr['launches_per_step']}",
+          flush=True)
+    _check(diff <= MESH_STEP_TOL, f"{HYBRID_ARCH} mesh train losses {losses} vs "
+           f"{hybrid_losses}")
+    _check(all(la == per_step for la in tr["launches_per_step"]),
+           f"{HYBRID_ARCH} mesh train steps launched {tr['launches_per_step']}, not {per_step}")
+    mesh_train[HYBRID_ARCH] = {"median_step_ms": tr["median_step_ms"],
+                               "max_memory_allocated": tr["max_memory_allocated"],
+                               "losses_max_rel_diff": diff,
+                               "losses_bit_equal": losses == hybrid_losses}
+    launches_by_arch[HYBRID_ARCH]["train_per_step"] = per_step
+    del tr
     torch.cuda.empty_cache()
-    _phase_done(10, t_phase, "(d)")
-    return {"train": mesh_train, "serve": mesh_serve, "launches": launches}
+    dist.destroy_process_group()
+    k2_local = check_k2_local_heads(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.empty_cache()
+    _phase_done(10, t_phase, "(g)")
+    launches["by_arch"] = launches_by_arch
+    return {"train": mesh_train, "serve": mesh_serve, "launches": launches,
+            "k2_local_heads": k2_local,
+            "k2_launches": {arch: {k: (v["ssd"] if isinstance(v, dict) else v)
+                                   for k, v in n.items()}
+                            for arch, n in launches_by_arch.items()
+                            if get_config(arch).family in ("ssm", "hybrid")}}
 
 
 # ---------------------------------------------------------------------------
@@ -2104,7 +2317,7 @@ def main() -> int:
 
     # 3 and 4, for each model: serve at full width and depth in bf16, then f32
     # consistency
-    served, decode_served, serve_ms = {}, {}, {}
+    served, decode_served, serve_ms, served_tokens = {}, {}, {}, {}
     for arch in SERVE_ARCHS:
         full = get_config(arch)
         cfg, label = cut_depth(arch, SERVE_LAYERS.get(arch))
@@ -2129,8 +2342,8 @@ def main() -> int:
                f"{arch} request launched {res['request_launches']}, not {expect_request} "
                f"(prefill {expect} + {DECODE_STEPS} steps x {per_step})")
         served[arch] = res["prefill_launches"]
-        if arch == ARCH:
-            served_tokens = res["tokens"].cpu()
+        if arch == ARCH or arch in MESH_SERVE_ARCHS:
+            served_tokens[arch] = res["tokens"].cpu()
         decode_served[arch] = per_step
         serve_ms[arch] = (res["prefill_ms"], res["decode_ms_per_step"])
         del res
@@ -2316,13 +2529,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = _phase_done(7, t_phase, "(a)")
     remat_rc = train_rc("cuda", remat=True, remat_policy="full", ssd_chunk=SSD_TRAIN_CHUNK)
-    train_launches = {}
+    train_launches, hybrid_losses = {}, []
     for part, arch, layers, steps in (("b", HYBRID_ARCH, None, TRAIN_STEPS),
                                       ("c", SSM_ARCH, SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS),
                                       ("d", DENSE_REMAT_ARCH, None, DENSE_REMAT_STEPS)):
         cfg, label = cut_depth(arch, layers)
-        train_launches[label] = train_and_check(f"[7] ({part})", cfg, label, steps=steps,
-                                                rc=remat_rc)
+        train_launches[label] = train_and_check(
+            f"[7] ({part})", cfg, label, steps=steps, rc=remat_rc,
+            losses_out=hybrid_losses if arch == HYBRID_ARCH else None)
         t_phase = _phase_done(7, t_phase, f"({part}) {arch}")
 
     cut = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_PLAIN_LAYERS)
@@ -2364,9 +2578,17 @@ def main() -> int:
     print("[10] (a) K1 at a query offset (row blocks of a \"seq\" mesh)", flush=True)
     k1_offset = check_k1_offset(torch.Generator(device="cuda").manual_seed(SEED))
     t_phase = _phase_done(10, t_phase, "(a)")
-    mesh_run = mesh_paths(get_config(ARCH), res, served_tokens, t_phase)
+    mesh_run = mesh_paths(get_config(ARCH), res, served_tokens, serve_ms, hybrid_losses,
+                          remat_rc, t_phase)
+    k2["at"].update(mesh_run.pop("k2_local_heads"))
+    k2["mesh_launches"] = mesh_run.pop("k2_launches")
 
-    # 11. results; the ok line is last
+    # 11. the dry run of launch/ on the fake backend
+    t_phase = time.perf_counter()
+    dry_run_cells()
+    _phase_done(11, t_phase)
+
+    # 12. results; the ok line is last
     # launches: the sum over the served models' timed prefills (each counted
     # from 0), and per model
     for entry, kernel in ((k1, "attention"), (k2, "ssd")):

@@ -18,6 +18,15 @@ only; ``ops.attention`` sends a CPU tensor to the plain version,
 and its backward is ``ref.attention_bwd``, tensor ops that recompute P
 (the Pallas kernel has no backward; the JAX model trains through XLA's
 autodiff of its jnp attention).
+
+The forward launch is bound as the operator ``repro_torch::k1_fwd``
+(``torch.library``), which ``FlashAttentionFn.forward`` calls:
+its CUDA implementation is ``flash_attention`` below, its fake
+implementation gives a meta tensor the output's shape and dtype (a dry
+run traces the model on the meta device and launches nothing), and its
+FLOP formula (``flops``) tells ``torch.utils.flop_counter`` what the
+kernel computes. It has no CPU implementation: a CPU tensor never
+reaches it (``ops.attention`` sends one to the plain version).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -48,19 +58,25 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"K1 takes CUDA tensors; {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"K1 takes contiguous tensors; {name} is not")
+        if t.data_ptr() % 16:
+            raise ValueError(f"K1 takes 16-byte aligned tensors; {name} is not")
+    if not (q.device == k.device == v.device):
+        raise ValueError("K1 takes q, k and v on one device")
+    _check_shapes(q, k, v)
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ValueError unless the kernel takes these dtypes and shapes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES:
             raise ValueError(f"K1 takes float32 or bfloat16; {name} is {t.dtype}")
         if t.dim() != 4:
             raise ValueError(f"K1 takes 4-d (B, S|T, H|K, hd) tensors; {name} has shape "
                              f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"K1 takes contiguous tensors; {name} is not")
-        if t.data_ptr() % 16:
-            raise ValueError(f"K1 takes 16-byte aligned tensors; {name} is not")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"K1 takes one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("K1 takes q, k and v on one device")
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"K1 takes head_dim in {HEAD_DIMS}; got {hd}")
@@ -101,16 +117,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def live_pairs(S: int, T: int, causal: bool, q_offset: int = 0) -> int:
+    """The (query, key) pairs K1 computes: S * T, or under the causal mask
+    the keys row i (global row ``q_offset + i``) keeps, min(q_offset + i + 1, T)."""
+    if not causal:
+        return S * T
+    m = max(0, min(S, T - q_offset))          # the rows whose bound lies inside T
+    return m * q_offset + m * (m + 1) // 2 + (S - m) * T
+
+
+def flops(B: int, S: int, T: int, H: int, hd: int, causal: bool, q_offset: int = 0) -> int:
+    """K1's operations: 2 for each multiply-add of q.k and of p.v, over the
+    live pairs of every query head (the tiles past the causal bound skipped)."""
+    return 4 * B * H * hd * live_pairs(S, T, causal, q_offset)
+
+
+# the operator of one K1 forward launch: its CUDA implementation is
+# ``flash_attention``, its fake one shapes a meta tensor's output. Bound
+# through ``torch.library.Library`` (``custom_op``'s extra Python layers
+# cost the host more on each call); the library must stay alive.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("k1_fwd(Tensor q, Tensor k, Tensor v, bool causal, int q_offset) -> Tensor")
+
+
+def _k1_fwd_cuda(q, k, v, causal, q_offset):
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+_LIB.impl("k1_fwd", _k1_fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::k1_fwd")
+def _k1_fwd_fake(q, k, v, causal, q_offset):
+    _check_shapes(q, k, v)
+    ref.check_q_offset(q.shape[1], k.shape[1], q_offset, causal)
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.k1_fwd)
+def _k1_fwd_flops(q_shape, k_shape, v_shape, causal, q_offset, *, out_shape=None, **kw):
+    B, S, H, hd = q_shape
+    return flops(B, S, k_shape[1], H, hd, causal, q_offset)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """K1 forward, tensor-op backward (``ref.attention_bwd``).
 
-    ``apply(q, k, v, causal, q_offset=0)`` launches K1 once and saves q,
-    k, v and the output for the backward, which launches no K1.
+    ``apply(q, k, v, causal, q_offset=0)`` launches K1 once (through
+    ``repro_torch::k1_fwd``; on meta tensors it only shapes the output)
+    and saves q, k, v and the output for the backward, which launches no K1.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int = 0):
-        out = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        out = torch.ops.repro_torch.k1_fwd(q, k, v, causal, q_offset)
         ctx.save_for_backward(q, k, v, out)
         ctx.causal, ctx.q_offset = causal, q_offset
         return out

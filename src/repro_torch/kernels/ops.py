@@ -2,11 +2,16 @@
 
 The device of the tensors decides, and nothing else: a CUDA tensor
 launches the kernel (or the call raises), a CPU tensor runs the plain
-PyTorch version. There is no fallback from one to the other.
+PyTorch version, and a meta tensor (a dry run, ``launch/dryrun.py``)
+goes the kernel's way, through the same autograd Function, to the
+kernel operator's fake implementation, which gives the outputs' shapes
+and dtypes and computes nothing: never the plain version's arithmetic
+in the kernel's place. There is no fallback from one to the other.
 
 Each kernel's entry here carries ``launches``, a plain int that counts
 the kernel launches made through it, so a run can show that its main
-path went through the kernel.
+path went through the kernel. A meta call launches nothing and is not
+counted.
 
 A CUDA attention call always goes through ``FlashAttentionFn`` (K1
 forward, tensor-op backward) and a CUDA SSD scan through ``SSDScanFn``
@@ -34,11 +39,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rank's block of rows against the full k/v); a causal call at an
     offset with ``q_offset + S > T`` is refused (``ref.check_q_offset``).
     CUDA: K1 (``csrc/flash_attention.cu``) through ``FlashAttentionFn``.
+    Meta: the same Function, whose K1 operator only shapes the output.
     CPU: ``ref.attention_ref``, whose autograd is the reference's.
     """
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         out = fa.FlashAttentionFn.apply(q, k, v, causal, q_offset)
-        attention.launches += 1
+        attention.launches += q.device.type == "cuda"
         return out
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset)
@@ -53,13 +59,14 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         init_state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> (y (b,s,h,p) in x's dtype, final_state (b,h,p,n) f32).
 
-    CUDA: K2 (``csrc/ssd_scan.cu``) through ``SSDScanFn``. CPU:
+    CUDA: K2 (``csrc/ssd_scan.cu``) through ``SSDScanFn``. Meta: the same
+    Function, whose K2 operator only shapes the outputs. CPU:
     ``models.ssm.ssd_chunked``, the JAX package's ``ops.ssd(impl="jnp")``
     path, whose autograd is the reference's.
     """
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         out = ssd_mod.SSDScanFn.apply(x, dt, A, B, C, chunk, init_state)
-        ssd.launches += 1
+        ssd.launches += x.device.type == "cuda"
         return out
     if x.device.type == "cpu":
         from repro_torch.models.ssm import ssd_chunked   # models.ssm imports this module

@@ -13,6 +13,14 @@ CUDA tensors only; ``ops.ssd`` sends a CPU tensor to the plain version,
 backward is the autograd of ``models.ssm.ssd_chunked``, recomputed from
 the saved inputs in tensor ops (the Pallas kernel has no backward; the
 JAX model trains through XLA's autodiff of that jnp scan).
+
+The forward launch is bound as the operator ``repro_torch::k2_fwd``
+(``torch.library``), which ``SSDScanFn.forward`` calls: its
+CUDA implementation is ``ssd_scan`` below, its fake implementation gives
+meta tensors the outputs' shapes and dtypes (a dry run launches
+nothing), and its FLOP formula (``flops``) tells
+``torch.utils.flop_counter`` what the kernel computes. It has no CPU
+implementation: ``ops.ssd`` sends a CPU tensor to the plain version.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -63,21 +72,26 @@ def _launcher():
     return fn, lib.k2_error_string
 
 
-def _check_tensor(name: str, t: torch.Tensor, dtypes, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"K2 takes CUDA tensors; {name} is on {t.device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"K2 takes {name} in {dtypes}; got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"K2 takes {name} of shape {tuple(shape)}; got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"K2 takes contiguous tensors; {name} is not")
-    if t.data_ptr() % 16:
-        raise ValueError(f"K2 takes 16-byte aligned tensors; {name} is not")
-
-
 def _check_inputs(x, dt, A, B, C, chunk, init_state) -> None:
     """Raise ValueError unless the kernel takes these tensors and this chunk."""
+    _check_shapes(x, dt, A, B, C, chunk, init_state)
+    named = [(n, t) for n, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C),
+                                 ("init_state", init_state)) if t is not None]
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"K2 takes CUDA tensors; {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"K2 takes contiguous tensors; {name} is not")
+        if t.data_ptr() % 16:
+            raise ValueError(f"K2 takes 16-byte aligned tensors; {name} is not")
+    devices = {t.device for _, t in named}
+    if len(devices) != 1:
+        raise ValueError(f"K2 takes its tensors on one device; got {sorted(map(str, devices))}")
+
+
+def _check_shapes(x, dt, A, B, C, chunk, init_state):
+    """Raise ValueError unless the kernel takes these shapes, dtypes and this
+    chunk; return (b, s, h, p, n)."""
     if x.dim() != 4:
         raise ValueError(f"K2 takes x of shape (b, s, h, p); got {tuple(x.shape)}")
     b, s, h, p = x.shape
@@ -95,16 +109,18 @@ def _check_inputs(x, dt, A, B, C, chunk, init_state) -> None:
         raise ValueError(f"K2 takes a chunk in [1, {MAX_CHUNK}]; got {chunk}")
     if s % chunk:
         raise ValueError(f"K2 takes a chunk that divides s; {chunk} does not divide {s}")
-    _check_tensor("x", x, DTYPES, (b, s, h, p))
-    _check_tensor("dt", dt, (torch.float32,), (b, s, h))
-    _check_tensor("A", A, (torch.float32,), (h,))
-    _check_tensor("B", B, DTYPES, (b, s, n))
-    _check_tensor("C", C, (B.dtype,), (b, s, n))
-    if init_state is not None:
-        _check_tensor("init_state", init_state, (torch.float32,), (b, h, p, n))
-    devices = {t.device for t in (x, dt, A, B, C, init_state) if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"K2 takes its tensors on one device; got {sorted(map(str, devices))}")
+    for name, t, dtypes, shape in (
+            ("x", x, DTYPES, (b, s, h, p)), ("dt", dt, (torch.float32,), (b, s, h)),
+            ("A", A, (torch.float32,), (h,)), ("B", B, DTYPES, (b, s, n)),
+            ("C", C, (B.dtype,), (b, s, n)),
+            ("init_state", init_state, (torch.float32,), (b, h, p, n))):
+        if t is None:
+            continue
+        if t.dtype not in dtypes:
+            raise ValueError(f"K2 takes {name} in {dtypes}; got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"K2 takes {name} of shape {tuple(shape)}; got {tuple(t.shape)}")
+    return b, s, h, p, n
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -139,11 +155,51 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     return y, final_state
 
 
+def flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """K2's operations: 2 for each multiply-add of C.B^T over each chunk's
+    causal (i, j) pairs (once per batch row and chunk: B and C have no head
+    axis), and per batch row, head and chunk of the intra-chunk term over
+    the same pairs and P, and of the carried-state output term and the
+    state update (chunk * N * P each)."""
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    return 2 * b * nc * (pairs * n + h * (pairs * p + 2 * chunk * n * p))
+
+
+# the operator of one K2 launch: its CUDA implementation is ``ssd_scan``,
+# its fake one shapes meta tensors' outputs (bound as K1's is,
+# ``flash_attention._LIB``); the library must stay alive.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("k2_fwd(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, int chunk, "
+            "Tensor? init_state) -> (Tensor, Tensor)")
+
+
+def _k2_fwd_cuda(x, dt, A, B, C, chunk, init_state):
+    return ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+
+
+_LIB.impl("k2_fwd", _k2_fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::k2_fwd")
+def _k2_fwd_fake(x, dt, A, B, C, chunk, init_state):
+    b, s, h, p, n = _check_shapes(x, dt, A, B, C, chunk, init_state)
+    return torch.empty_like(x), x.new_empty((b, h, p, n), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.k2_fwd)
+def _k2_fwd_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk, init_shape, *,
+                  out_shape=None, **kw):
+    b, s, h, p = x_shape
+    return flops(b, s, h, p, B_shape[-1], chunk)
+
+
 class SSDScanFn(torch.autograd.Function):
     """K2 forward, tensor-op backward (the autograd of ``ssd_chunked``).
 
-    ``apply(x, dt, A, B, C, chunk, init_state)`` launches K2 once and
-    saves its inputs; the backward launches no K2. It recomputes
+    ``apply(x, dt, A, B, C, chunk, init_state)`` launches K2 once
+    (through ``repro_torch::k2_fwd``; on meta tensors it only shapes the
+    outputs) and saves its inputs; the backward launches no K2. It recomputes
     ``models.ssm.ssd_chunked`` from the saved inputs under a gradient and
     returns ``torch.autograd.grad`` of it, each gradient in its input's
     dtype (None for ``init_state`` when there is none). The final state's
@@ -152,7 +208,7 @@ class SSDScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk: int, init_state):
-        y, final_state = ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+        y, final_state = torch.ops.repro_torch.k2_fwd(x, dt, A, B, C, chunk, init_state)
         ctx.save_for_backward(x, dt, A, B, C, init_state)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)

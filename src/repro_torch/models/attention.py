@@ -33,12 +33,13 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import repeat_kv
 from repro_torch.models.layers import RunConfig, apply_rope, dense_init, linear
-from repro_torch.parallel.mesh import local_offset, shard_count, unshard_dim
+from repro_torch.parallel.mesh import (grad_placements, local_offset, merge_heads,
+                                       moved_placements, split_heads)
 
 NEG_INF = -1e30
 
@@ -58,15 +59,6 @@ def init_attention(gen, cfg, dtype, device, cross: bool = False):
         p["bk"] = torch.zeros((K * hd,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((K * hd,), dtype=dtype, device=device)
     return p
-
-
-def _split_heads(x, n, hd):
-    if n % shard_count(x, -1):
-        # a projection's columns sharded across head boundaries (n heads on
-        # a tp axis that n does not divide, the "seq" case): DTensor cannot
-        # split them into heads, so they are gathered first
-        x = unshard_dim(x, -1)
-    return x.reshape(x.shape[:-1] + (n, hd))
 
 
 def full_attention(q, k, v, *, causal: bool, q_offset: int = 0):
@@ -128,7 +120,8 @@ def _gqa_fold(q, n_kv):
     return q.reshape(B, S, n_kv, H // n_kv, hd)
 
 
-def decode_attention(q, k_cache, v_cache, index: int, psum=None, head_dim=None):
+def decode_attention(q, k_cache, v_cache, index: int, psum=None, head_dim=None,
+                     t0: int = 0, t_reduce=None):
     """Single-token decode, GQA-folded. q:(B,1,K,G,hd) caches:(B,T,K,hd).
 
     The scores are taken in f32 from the cache's values (the JAX package
@@ -139,16 +132,26 @@ def decode_attention(q, k_cache, v_cache, index: int, psum=None, head_dim=None):
     T=576), against 2 * B*T*K*hd bytes for reading the bf16 cache.
     ``psum`` sums the scores over the ranks that hold the other slices of
     head_dim, whose whole size ``head_dim`` then sets the scale
-    (``_local_decode``).
+    (``_local_decode``). With ``t_reduce`` the caches hold this rank's
+    slots from global slot ``t0`` of a cache cut over ranks along T:
+    ``t_reduce(x, "max" | "sum")`` reduces over those ranks, and the
+    softmax's max and sum and the output are taken over all the slots.
     """
     scale = 1.0 / math.sqrt(head_dim or q.shape[-1])
     scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k_cache.float()) * scale
     if psum is not None:
         scores = psum(scores)
-    valid = torch.arange(k_cache.shape[1], device=q.device) <= index
+    valid = torch.arange(k_cache.shape[1], device=q.device) + t0 <= index
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    return torch.einsum("bkgst,btkh->bskgh", p, v_cache)
+    if t_reduce is None:
+        p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+        return torch.einsum("bkgst,btkh->bskgh", p, v_cache)
+    m = t_reduce(scores.amax(dim=-1, keepdim=True), "max")
+    p = torch.exp(scores - m)
+    l = t_reduce(p.sum(dim=-1, keepdim=True), "sum")                # (B,K,G,1,1)
+    o = t_reduce(torch.einsum("bkgst,btkh->bskgh", p.to(v_cache.dtype), v_cache).float(),
+                 "sum")
+    return (o / l.permute(0, 3, 1, 2, 4)).to(v_cache.dtype)
 
 
 def _write_cache(cache: torch.Tensor, new: torch.Tensor, index: int) -> None:
@@ -156,15 +159,19 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, index: int) -> None:
 
     Like ``jax.lax.dynamic_update_slice_in_dim``, an out-of-range index
     is clamped into [0, T - 1], so the last slot is overwritten; nothing
-    is ever indexed out of bounds.
+    is ever indexed out of bounds. A DTensor cache is written in each
+    rank's shard; one cut along T (the long-context case) only on the
+    ranks whose slots hold ``index``.
     """
     start = min(max(index, 0), cache.shape[1] - new.shape[1])
     if isinstance(cache, DTensor):
-        # the write lands in each rank's shard of the cache, in place
-        if Shard(1) in cache.placements:
-            raise NotImplementedError("decode into a sequence-sharded cache")
-        new = new.redistribute(cache.device_mesh, cache.placements)
+        new = new.redistribute(cache.device_mesh, moved_placements(
+            cache.placements, {0: 0, 2: 2, 3: 3}))
+        t0 = local_offset(cache, 1)
         cache, new = cache.to_local(), new.to_local()
+        start -= t0
+        if not 0 <= start < cache.shape[1]:
+            return                                  # the slot lives on another rank
     cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
 
 
@@ -172,6 +179,7 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, index: int) -> None:
 # decode's output (B, 1, K, G, hd)
 _CACHE_TO_Q = {0: 0, 2: 2, 3: 3}
 _CACHE_TO_OUT = {0: 0, 2: 2, 3: 4}
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def _local_decode(q, k_cache, v_cache, index: int):
@@ -179,46 +187,28 @@ def _local_decode(q, k_cache, v_cache, index: int):
 
     q (B, 1, H, hd) is placed as the cache is (its batch, its KV heads'
     query heads, its slice of head_dim) and folded on each rank; where
-    the cache shards head_dim the scores are summed over those ranks. The
-    output (B, 1, K, G, hd) keeps the cache's placements. A cache sharded
-    on T (the long-context case) is refused: its slots live on other ranks.
+    the cache shards head_dim the scores are summed over those ranks,
+    and where it shards T (the long-context case) the softmax and the
+    output are reduced over those ranks. The output (B, 1, K, G, hd)
+    keeps the cache's placements but T's (replicated).
     """
     mesh = k_cache.device_mesh
-    if any(isinstance(p, Shard) and p.dim not in _CACHE_TO_Q for p in k_cache.placements):
-        raise NotImplementedError("decode against a sequence-sharded cache")
-    q_pl = [Shard(_CACHE_TO_Q[p.dim]) if isinstance(p, Shard) else Replicate()
-            for p in k_cache.placements]
-    out_pl = [Shard(_CACHE_TO_OUT[p.dim]) if isinstance(p, Shard) else Replicate()
-              for p in k_cache.placements]
+    q_pl = moved_placements(k_cache.placements, _CACHE_TO_Q)
+    out_pl = moved_placements(k_cache.placements, _CACHE_TO_OUT)
     hd_dims = [i for i, p in enumerate(k_cache.placements) if p == Shard(3)]
+    t_dims = [i for i, p in enumerate(k_cache.placements) if p == Shard(1)]
     ql, kl, vl = q.redistribute(mesh, q_pl).to_local(), k_cache.to_local(), v_cache.to_local()
 
-    def psum(scores):
-        scores = scores.clone()
-        for i in hd_dims:
-            dist.all_reduce(scores, group=mesh.get_group(i))
-        return scores
+    def reduce(x, dims, op="sum"):
+        x = x.clone()
+        for i in dims:
+            dist.all_reduce(x, op=_REDUCE_OPS[op], group=mesh.get_group(i))
+        return x
     out = decode_attention(_gqa_fold(ql, kl.shape[2]), kl, vl, index,
-                           psum=psum if hd_dims else None, head_dim=q.shape[-1])
+                           psum=(lambda x: reduce(x, hd_dims)) if hd_dims else None,
+                           head_dim=q.shape[-1], t0=local_offset(k_cache, 1),
+                           t_reduce=(lambda x, op: reduce(x, t_dims, op)) if t_dims else None)
     return DTensor.from_local(out, mesh, out_pl, run_check=False)
-
-
-def _merge_heads(x):
-    """(B, S, H, hd), or decode's (B, 1, K, G, hd) -> (B, S, H * hd).
-
-    A DTensor is merged on each rank's shard, keeping its placements, once
-    every merged dim but the first is whole (a sharded head_dim or G is
-    gathered first); its gradient is redistributed back into those
-    placements before the local reshape's backward, which the DTensor
-    reshape's own backward could not do from columns sharded across heads.
-    """
-    if not isinstance(x, DTensor):
-        return x.reshape(x.shape[:2] + (-1,))
-    for d in range(3, x.ndim):
-        x = unshard_dim(x, d)
-    local = x.to_local()
-    return DTensor.from_local(local.reshape(local.shape[:2] + (-1,)), x.device_mesh,
-                              x.placements, run_check=False)
 
 
 def _local_attention(q, k, v, *, causal: bool):
@@ -234,8 +224,7 @@ def _local_attention(q, k, v, *, causal: bool):
     """
     if not isinstance(q, DTensor):
         return ops.attention(q, k, v, causal=causal)
-    grad = [Partial() if isinstance(qp, Shard) and isinstance(kp, Replicate) else kp
-            for qp, kp in zip(q.placements, k.placements)]
+    grad = grad_placements(k, q)
     ql = q.to_local()
     kl, vl = k.to_local(grad_placements=grad), v.to_local(grad_placements=grad)
     H, Hl = q.shape[2], ql.shape[2]
@@ -278,7 +267,7 @@ def apply_attention(
     q = x @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]
-    q = _split_heads(q, H, hd)
+    q = split_heads(q, H, hd)
 
     if cross and cache is not None:
         # the cross k/v were computed at prefill and live in the cache
@@ -288,8 +277,8 @@ def apply_attention(
         v = src @ params["wv"]
         if "bk" in params:
             k, v = k + params["bk"], v + params["bv"]
-        k = _split_heads(k, K, hd)
-        v = _split_heads(v, K, hd)
+        k = split_heads(k, K, hd)
+        v = split_heads(v, K, hd)
         if not cross:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
@@ -320,5 +309,5 @@ def apply_attention(
         k, v = rc.constrain(k, kv_axes), rc.constrain(v, kv_axes)
         # ---- K-head k/v straight into K1 on the card: no repeat_kv copy ----
         out = rc.constrain(_local_attention(q, k, v, causal=causal), q_axes)
-    out = _merge_heads(out)
+    out = merge_heads(out)
     return linear(out, params["wo"]), new_kv

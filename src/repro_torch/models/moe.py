@@ -22,6 +22,16 @@ dispatch costs as much as a product: at B=8, S=512 on qwen2-moe-a2.7b
 dispatch and combine is 2·G·S·Ep·C·D = 185 GFLOP a layer, against 381
 GFLOP for the three expert products. A dispatch that gathers rows by
 index is later work.
+
+Under a mesh (DTensor activations) the layer runs on each rank's local
+shards (``_apply_moe_local``), as the attention runs K1: each rank routes
+its own groups of tokens (the batch on dp; a group that straddles the
+ranks' rows has the rows gathered first) with the same ``route`` on
+plain tensors, so the stable top-k and the capacity order are the
+single process's; the experts stay on tp (``_MOE_AXES``: each rank runs
+the dispatch, expert and combine products for its experts, the fsdp
+dim gathered) and the output is Partial over tp; the aux loss is made
+whole from each rank's sums over its tokens.
 """
 from __future__ import annotations
 
@@ -29,8 +39,11 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.layers import RunConfig, apply_mlp, dense_init, init_mlp
+from repro_torch.parallel.mesh import (grad_placements, local_offset, reduce_partial,
+                                       unshard_dim)
 
 
 def init_moe(gen, cfg, dtype, device):
@@ -69,6 +82,15 @@ def route(logits_f32: torch.Tensor, cfg, group: int):
     place in its expert's queue, after every choice of slots < j and of
     earlier tokens in slot j; a choice past capacity is dropped.
     """
+    dispatch, combine, probs = _route(logits_f32, cfg, group)
+    E = cfg.n_experts
+    me = probs[..., :E].mean(dim=(0, 1))
+    assign = dispatch[..., :E, :].float().sum(-1).mean(dim=(0, 1))
+    return dispatch, combine, _aux(me, assign, E)
+
+
+def _route(logits_f32: torch.Tensor, cfg, group: int):
+    """``route``'s dispatch and combine, and the router's probabilities."""
     E, Ep, k = cfg.n_experts, cfg.n_experts_padded, cfg.top_k
     C = _capacity(cfg, group)
     if Ep > E:                       # padded experts are never routable
@@ -91,12 +113,20 @@ def route(logits_f32: torch.Tensor, cfg, group: int):
         dispatch = dispatch + sel.to(torch.bfloat16)
         combine = combine + sel * gate_vals[:, :, slot, None, None]
         counts = counts + oh.sum(dim=1, dtype=torch.int32)
+    return dispatch, combine, probs
 
-    # load-balancing aux loss (Switch-style), over real experts only
-    me = probs[..., :E].mean(dim=(0, 1))
-    assign = dispatch[..., :E, :].float().sum(-1).mean(dim=(0, 1))
-    aux = E * torch.sum(me * assign)
-    return dispatch, combine, aux
+
+def _aux_sums(probs, dispatch, E: int):
+    """The sums over the tokens of the router's probabilities and of the
+    kept assignments, per real expert: (E,) each."""
+    return (probs[..., :E].sum(dim=(0, 1)),
+            dispatch[..., :E, :].float().sum(-1).sum(dim=(0, 1)))
+
+
+def _aux(me, assign, E: int):
+    """The load-balancing aux loss (Switch-style) over the real experts,
+    from their mean probabilities and mean assignments."""
+    return E * torch.sum(me * assign)
 
 
 def apply_moe(params, x: torch.Tensor, cfg, rc: RunConfig):
@@ -111,17 +141,77 @@ def apply_moe(params, x: torch.Tensor, cfg, rc: RunConfig):
     G = tokens // group
     if G * group != tokens:
         raise ValueError(f"moe_group {group} does not divide the {tokens} tokens")
+    if isinstance(x, DTensor):
+        return _apply_moe_local(params, x, cfg, rc, group)
     xg = x.reshape(G, group, D)
 
     logits = xg @ params["router"].to(rc.compute_dtype)
     dispatch, combine, aux = route(logits.float(), cfg, group)
-
-    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(xg.dtype), xg)         # (G, E, C, D)
-    h1 = F.silu(torch.einsum("gecd,edf->gecf", xe, params["w1"]))
-    h3 = torch.einsum("gecd,edf->gecf", xe, params["w3"])
-    he = torch.einsum("gecf,efd->gecd", h1 * h3, params["w2"])             # (G, E, C, D)
-    y = torch.einsum("gsec,gecd->gsd", combine.to(he.dtype), he)
-
+    y = _experts(xg, dispatch, combine, params["w1"], params["w3"], params["w2"])
     if "shared" in params:
         y = y + apply_mlp(params["shared"], xg)
     return y.reshape(B, S, D), aux
+
+
+def _experts(xg, dispatch, combine, w1, w3, w2):
+    """Dispatch, the three expert products and combine -> (G, S, D)."""
+    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(xg.dtype), xg)         # (G, E, C, D)
+    h1 = F.silu(torch.einsum("gecd,edf->gecf", xe, w1))
+    h3 = torch.einsum("gecd,edf->gecf", xe, w3)
+    he = torch.einsum("gecf,efd->gecd", h1 * h3, w2)                       # (G, E, C, D)
+    return torch.einsum("gsec,gecd->gsd", combine.to(he.dtype), he)
+
+
+def _apply_moe_local(params, x: DTensor, cfg, rc: RunConfig, group: int):
+    """``apply_moe`` on each rank's shards of a DTensor ``x``.
+
+    Routing runs on plain tensors, on each rank's own groups (its rows of
+    the batch; where a group would straddle two ranks' rows the rows are
+    gathered and every rank routes them all), redone alike on each rank
+    of the experts' mesh dims. Each rank then runs its experts' slice of
+    dispatch and combine and their products (the fsdp dim of the
+    weights gathered), so the routed output is Partial on the experts'
+    mesh dims. The gradients of x and of the router are Partial on the
+    experts' mesh dims (each rank's experts add their share), those of
+    the router and the experts Partial on the batch's. The aux loss is
+    made whole from each rank's sums over its tokens, each divided by
+    the number of ranks on the experts' mesh dims, which repeat them.
+    """
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    x = reduce_partial(x)
+    for d in (1, 2):
+        x = unshard_dim(x, d)
+    if (x.to_local().shape[0] * S) % group:
+        x = unshard_dim(x, 0)
+    ws = [unshard_dim(params[k], 1) for k in ("w1", "w3", "w2")]
+    router = unshard_dim(params["router"], 0)
+    # mesh dims where x is sharded (disjoint tokens) or the experts are
+    tok = [isinstance(p, Shard) for p in x.placements]
+    exp = [isinstance(p, Shard) for p in ws[0].placements]
+    split = [Partial() if t or e else Replicate() for t, e in zip(tok, exp)]
+    xl = x.to_local(grad_placements=grad_placements(x, ws[0]))
+    wl = [w.to_local(grad_placements=grad_placements(w, x)) for w in ws]
+    rl = router.to_local(grad_placements=split)
+    Bl = xl.shape[0]
+    xg = xl.reshape(Bl * S // group, group, D)
+
+    logits = xg @ rl.to(rc.compute_dtype)
+    dispatch, combine, probs = _route(logits.float(), cfg, group)
+    e0, El = local_offset(ws[0], 0), wl[0].shape[0]
+    y = _experts(xg, dispatch[:, :, e0:e0 + El], combine[:, :, e0:e0 + El], *wl)
+    y = DTensor.from_local(y.reshape(Bl, S, D), mesh,
+                           [Partial() if e else p for p, e in zip(x.placements, exp)],
+                           run_check=False)
+
+    repeats = 1
+    for i, (t, e) in enumerate(zip(tok, exp)):
+        repeats *= mesh.size(i) if e and not t else 1
+    whole = [Replicate()] * mesh.ndim
+    me, assign = (DTensor.from_local(t / (B * S * repeats), mesh, split,
+                                     run_check=False).redistribute(mesh, whole)
+                  for t in _aux_sums(probs, dispatch, cfg.n_experts))
+    aux = _aux(me, assign, cfg.n_experts)
+    if "shared" in params:
+        y = y + apply_mlp(params["shared"], x)
+    return y, aux

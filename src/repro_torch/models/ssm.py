@@ -19,6 +19,15 @@ of ``ssd_chunked`` recomputed in tensor ops; the train cells' chunk is
 ``RunConfig(ssd_chunk=32)``. The single-token decode step, the conv and
 the projections stay plain PyTorch, as the JAX package computes them
 outside any Pallas kernel too.
+
+Under a mesh the activations are DTensors: the x/z/dt projections' SSD
+heads sit on tp (``in_x``, ``in_z`` and ``in_dt`` are column-parallel),
+B and C are whole on tp (``in_B``/``in_C`` are fsdp-only), batch on dp.
+``_local_ssd`` runs the scan (K2 on the card) on each rank's local heads
+and ``_local_decode_step`` the decode update, as
+``attention._local_attention`` runs K1; the conv's zero tail takes the
+activation's placements, and the decode's state and tails are written
+into each rank's shard of the cache (``write_layer``).
 """
 from __future__ import annotations
 
@@ -27,9 +36,12 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops, ssd_scan
-from repro_torch.models.layers import RunConfig, dense_init, rms_norm
+from repro_torch.models.layers import RunConfig, dense_init, linear, rms_norm
+from repro_torch.parallel.mesh import (grad_placements, local_offset, merge_heads,
+                                       moved_placements, split_heads)
 
 
 class SSMState(NamedTuple):
@@ -79,13 +91,28 @@ def causal_conv(x, w, tail=None):
     """
     W = w.shape[0]
     if tail is None:
-        tail = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        tail = _zeros_like_rows(x, W - 1)
+    elif isinstance(x, DTensor):
+        # a cache's tail may be sharded where x is not (conv_B / conv_C on tp)
+        tail = tail.redistribute(x.device_mesh, x.placements)
     xp = torch.cat([tail, x], dim=1)                  # (B, S+W-1, C)
     S = x.shape[1]
     y = xp[:, 0:S] * w[0]
     for i in range(1, W):
         y = y + xp[:, i:i + S] * w[i]
     return y, xp[:, S:].clone()
+
+
+def _zeros_like_rows(x, rows: int):
+    """Zeros of x's shape with ``rows`` in place of dim 1, in x's dtype,
+    device and (a DTensor) placements: each rank makes its own shard."""
+    if not isinstance(x, DTensor):
+        return torch.zeros((x.shape[0], rows) + tuple(x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
+    local = x.to_local()                    # the projections are never sequence-sharded
+    zeros = torch.zeros((local.shape[0], rows) + tuple(local.shape[2:]), dtype=x.dtype,
+                        device=local.device)
+    return DTensor.from_local(zeros, x.device_mesh, x.placements, run_check=False)
 
 
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
@@ -158,6 +185,73 @@ def ssd_decode_step(state, x, dt, A, Bv, Cv):
     return y.to(x.dtype), state
 
 
+# xh (B, S, H, P)'s dims -> those of dt (B, S, H), of B/C (B, S, N) and of
+# the state (B, H, P, N); decode's x (B, H, P) -> the state
+_XH_TO_DT = {0: 0, 2: 2}
+_XH_TO_BC = {0: 0}
+_XH_TO_STATE = {0: 0, 2: 1}
+_X_TO_STATE = {0: 0, 1: 1}
+
+
+def _local_ssd(xh, dt, A, Bm, Cm, *, chunk: int, init_state=None):
+    """``ops.ssd`` (K2 on the card) on this rank's shards of the scan's inputs.
+
+    Plain tensors go straight to ``ops.ssd``. For DTensors: xh (B, S, H,
+    P), sharded on its batch and heads at most (``apply_mamba`` constrains
+    the projections so), keeps its placements; dt and the initial state
+    are placed as its batch and heads, B/C as its batch (whole on the
+    heads' mesh dims), and A is sliced to the rank's heads. y and the
+    final state come back with those placements. The gradients of B/C
+    and A are Partial on each mesh dim where xh is sharded and they are not.
+    """
+    if not isinstance(xh, DTensor):
+        return ops.ssd(xh, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+    mesh = xh.device_mesh
+    pl = xh.placements
+    dt = dt.redistribute(mesh, moved_placements(pl, _XH_TO_DT))
+    Bm, Cm = (t.redistribute(mesh, moved_placements(pl, _XH_TO_BC)) for t in (Bm, Cm))
+    xl, dtl = xh.to_local(), dt.to_local()
+    Bl, Cl = (t.to_local(grad_placements=grad_placements(t, xh)) for t in (Bm, Cm))
+    h0 = local_offset(xh, 2)
+    Al = A.to_local(grad_placements=grad_placements(A, xh))[h0:h0 + xl.shape[2]]
+    st_pl = moved_placements(pl, _XH_TO_STATE)
+    init = (None if init_state is None
+            else init_state.redistribute(mesh, st_pl).to_local())
+    y, state = ops.ssd(xl, dtl, Al, Bl, Cl, chunk=chunk, init_state=init)
+    return (DTensor.from_local(y, mesh, pl, run_check=False),
+            DTensor.from_local(state, mesh, st_pl, run_check=False))
+
+
+def _local_decode_step(state, x, dt, A, Bv, Cv):
+    """``ssd_decode_step`` on this rank's shards (as ``_local_ssd``; x is
+    (B, H, P), the state (B, H, P, N) is placed as x's batch and heads)."""
+    if not isinstance(x, DTensor):
+        return ssd_decode_step(state, x, dt, A, Bv, Cv)
+    mesh = x.device_mesh
+    pl = x.placements
+    st_pl = moved_placements(pl, _X_TO_STATE)
+    dtl = dt.redistribute(mesh, pl).to_local()
+    Bl, Cl = (t.redistribute(mesh, moved_placements(pl, _XH_TO_BC)).to_local()
+              for t in (Bv, Cv))
+    xl = x.to_local()
+    h0 = local_offset(x, 1)
+    y, new = ssd_decode_step(state.redistribute(mesh, st_pl).to_local(), xl, dtl,
+                             A.to_local()[h0:h0 + xl.shape[1]], Bl, Cl)
+    return (DTensor.from_local(y, mesh, pl, run_check=False),
+            DTensor.from_local(new, mesh, st_pl, run_check=False))
+
+
+def write_layer(dst: torch.Tensor, i: int, src: torch.Tensor) -> None:
+    """``dst[i] = src`` in place (a stacked cache leaf's layer i). A DTensor
+    ``src`` lands in each rank's shard of ``dst``: it is first placed as
+    ``dst``'s layer is (a local slice where only ``dst`` is sharded)."""
+    if isinstance(dst, DTensor):                 # cache_specs never shards the layers
+        pl = moved_placements(dst.placements, {d: d - 1 for d in range(1, dst.ndim)})
+        src = src.redistribute(dst.device_mesh, pl).to_local()
+        dst = dst.to_local()
+    dst[i].copy_(src)
+
+
 def pick_chunk(S: int, cfg, rc: RunConfig) -> int:
     """The JAX package's chunk: min(rc.ssd_chunk or cfg.ssm_chunk, S),
     decremented until it divides S."""
@@ -177,11 +271,16 @@ def apply_mamba(params, x, cfg, rc: RunConfig, state: Optional[SSMState] = None,
     H, P = cfg.ssm_n_heads, cfg.ssm_head_dim
     cdt = rc.compute_dtype
 
-    xv = x @ params["in_x"]
-    zv = x @ params["in_z"]
-    Bv = x @ params["in_B"]
-    Cv = x @ params["in_C"]
-    dt = x @ params["in_dt"]
+    # under a mesh, each projection is placed as the scan takes it: batch on
+    # dp, heads on tp, B/C whole on tp (DTensor may leave a decode step's
+    # small product Partial over the fsdp axis, moving the activation in
+    # place of gathering the weight)
+    heads, rows = ("dp", None, "tp"), ("dp", None, None)
+    xv = rc.constrain(linear(x, params["in_x"]), heads)
+    zv = rc.constrain(linear(x, params["in_z"]), heads)
+    Bv = rc.constrain(linear(x, params["in_B"]), rows)
+    Cv = rc.constrain(linear(x, params["in_C"]), rows)
+    dt = rc.constrain(linear(x, params["in_dt"]), heads)
 
     tails = (None, None, None) if state is None else (state.conv_x, state.conv_B,
                                                       state.conv_C)
@@ -195,29 +294,29 @@ def apply_mamba(params, x, cfg, rc: RunConfig, state: Optional[SSMState] = None,
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
 
-    Bsz, S, _ = x.shape
-    xh = xv.reshape(Bsz, S, H, P)
+    S = x.shape[1]
+    xh = split_heads(xv, H, P)
 
     new_state = None
     if state is not None and S == 1:
-        y, ssd = ssd_decode_step(state.ssd, xh[:, 0], dt[:, 0], A, Bv[:, 0], Cv[:, 0])
+        y, ssd = _local_decode_step(state.ssd, xh[:, 0], dt[:, 0], A, Bv[:, 0], Cv[:, 0])
         y = y[:, None]                                          # (B,1,H,P)
         new_state = SSMState(ssd, tx, tb, tc)
     else:
         init = state.ssd if state is not None else None
         chunk = pick_chunk(S, cfg, rc)
-        if xh.device.type == "cuda":       # K2 takes chunks up to ssd_scan.MAX_CHUNK
+        if xh.device.type in ("cuda", "meta"):   # K2 takes chunks up to MAX_CHUNK
             chunk = ssd_scan.kernel_chunk(S, chunk)
-        y, ssd = ops.ssd(xh, dt, A, Bv, Cv, chunk=chunk, init_state=init)
+        y, ssd = _local_ssd(xh, dt, A, Bv, Cv, chunk=chunk, init_state=init)
         if return_state:
             new_state = SSMState(ssd, tx, tb, tc)
 
     # D skip, gate, norm, out-projection
     y = y.float() + params["D_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(Bsz, S, H * P).to(cdt)
+    y = merge_heads(y).to(cdt)
     y = y * F.silu(zv)
     y = rms_norm(y, params["gate_norm"], cfg.norm_eps)
-    return y @ params["out"], new_state
+    return linear(y, params["out"]), new_state
 
 
 def init_ssm_state(cfg, batch: int, dtype, device, layers: Optional[int] = None) -> SSMState:

@@ -387,18 +387,14 @@ def _attn_forward(params, cfg, rc, h, positions, img, return_cache):
 def _mamba_forward(params, cfg, rc, h, positions, return_cache):
     """The Mamba2 stack (ssm), with the shared block after every full
     segment (hybrid) -> (h, cache)."""
-    states = (ssm_lib.init_ssm_state(cfg, h.shape[0], rc.compute_dtype, h.device,
-                                     layers=cfg.n_layers)
-              if return_cache else None)
     mamba_block = _maybe_remat(lambda bp, hh: _apply_mamba_block(
         bp, hh, cfg, rc, return_state=return_cache), rc)
-    ks, vs = [], []
+    ks, vs, states = [], [], []
     for a, b, shared in _mamba_segments(cfg):
         for i in range(a, b):
             h, st = mamba_block(_layer(params["blocks"], i), h)
             if return_cache:
-                for dst, src in zip(states, st):
-                    dst[i].copy_(src)
+                states.append(st)
         if shared:
             h, kv, _ = _apply_attn_block(params["shared_block"], h, cfg, rc,
                                          positions, return_kv=return_cache)
@@ -407,7 +403,7 @@ def _mamba_forward(params, cfg, rc, h, positions, return_cache):
                 vs.append(kv[1])
     cache = None
     if return_cache:
-        cache = {"ssm": states}
+        cache = {"ssm": ssm_lib.SSMState(*(torch.stack(t) for t in zip(*states)))}
         if cfg.family == "hybrid":
             cache.update(k=torch.stack(ks), v=torch.stack(vs))
     return h, cache
@@ -471,7 +467,7 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: Optional[torch.Tensor
                 h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
                                            state=ssm_lib.SSMState(*(t[i] for t in states)))
                 for dst, src in zip(states, st):
-                    dst[i].copy_(src)
+                    ssm_lib.write_layer(dst, i, src)
             if shared:
                 h, _, _ = _apply_attn_block(params["shared_block"], h, cfg, rc, positions,
                                             cache=(cache["k"][app], cache["v"][app]),

@@ -177,6 +177,50 @@ def reduce_partial(x):
                                           for p in x.placements])
 
 
+def grad_placements(x: DTensor, other: DTensor) -> list:
+    """The placements of the gradient of ``x.to_local()`` when each rank
+    combines its shard of ``x`` with its shard of ``other``: ``x``'s own,
+    but ``Partial`` on each mesh dim where ``other`` is sharded and ``x``
+    is replicated (each rank's part of ``other`` adds its share)."""
+    return [Partial() if isinstance(op, Shard) and isinstance(xp, Replicate) else xp
+            for xp, op in zip(x.placements, other.placements)]
+
+
+def moved_placements(placements, dims) -> list:
+    """``placements`` of a tensor carried over to another tensor whose dim
+    ``dims[d]`` is this one's dim d: each ``Shard(d)`` becomes
+    ``Shard(dims[d])``, or ``Replicate()`` where ``dims`` has no d."""
+    return [(Shard(dims[p.dim]) if p.dim in dims else Replicate())
+            if isinstance(p, Shard) else p for p in placements]
+
+
+def split_heads(x, n: int, size: int):
+    """(..., n * size) -> (..., n, size). A DTensor whose last dim is sharded
+    across head boundaries (n heads on a tp axis that n does not divide)
+    is gathered first: DTensor cannot split such columns into heads."""
+    if n % shard_count(x, -1):
+        x = unshard_dim(x, -1)
+    return x.reshape(x.shape[:-1] + (n, size))
+
+
+def merge_heads(x):
+    """(B, S, H, hd), or decode's (B, 1, K, G, hd) -> (B, S, H * hd).
+
+    A DTensor is merged on each rank's shard, keeping its placements, once
+    every merged dim but the first is whole (a sharded head_dim or G is
+    gathered first); its gradient is redistributed back into those
+    placements before the local reshape's backward, which the DTensor
+    reshape's own backward could not do from columns sharded across heads.
+    """
+    if not isinstance(x, DTensor):
+        return x.reshape(x.shape[:2] + (-1,))
+    for d in range(3, x.ndim):
+        x = unshard_dim(x, d)
+    local = x.to_local()
+    return DTensor.from_local(local.reshape(local.shape[:2] + (-1,)), x.device_mesh,
+                              x.placements, run_check=False)
+
+
 def make_constrain(mesh, rules=None):
     """RunConfig.constrain hook: constrain(x, logical_axes) -> x.
 

@@ -25,7 +25,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.models import Model, RunConfig, build
 from repro_torch.optim.adamw import OptConfig, TrainState, apply_updates, init_state
 from repro_torch.parallel import compression as comp_lib
-from repro_torch.parallel.mesh import P
+from repro_torch.parallel.mesh import P, unshard_dim
 from repro_torch.parallel.sharding import (ShardingPolicy, batch_specs, is_sharding,
                                            param_specs, place, to_named, whole)
 from repro_torch.runtime.serve import mesh_runconfig
@@ -73,11 +73,17 @@ def _micro(x: torch.Tensor, a: int, i: int) -> torch.Tensor:
     """Micro-batch ``i`` of ``a`` along dim 0. A DTensor batch is cut on
     each rank's own rows (every micro-batch keeps the batch's placements),
     so no rank gathers another's rows; the micro-batches then hold other
-    rows than the unsharded cut, but the mean over all of them is the same."""
+    rows than the unsharded cut, but the mean over all of them is the same.
+    Where a rank holds fewer rows than ``a`` (or a number ``a`` does not
+    divide), the batch is gathered and cut as one process cuts it, and the
+    model places the micro-batch (``rc.constrain``) on the dp axes its rows
+    divide."""
     if isinstance(x, DTensor):
         local = x.to_local()
-        part = local.reshape((a, local.shape[0] // a) + tuple(local.shape[1:]))[i]
-        return DTensor.from_local(part, x.device_mesh, x.placements, run_check=False)
+        if local.shape[0] % a == 0:
+            part = local.reshape((a, local.shape[0] // a) + tuple(local.shape[1:]))[i]
+            return DTensor.from_local(part, x.device_mesh, x.placements, run_check=False)
+        x = unshard_dim(x, 0)
     return x.reshape((a, x.shape[0] // a) + tuple(x.shape[1:]))[i]
 
 

@@ -319,8 +319,14 @@ def test_k1_launcher_takes_cuda_tensors_only():
     q = torch.zeros((1, 8, 2, 64))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, q, q, causal=True)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    # the operator of the launch has no CPU implementation
+    with pytest.raises(NotImplementedError, match="CPU"):
+        torch.ops.repro_torch.k1_fwd(q, q, q, True, 0)
+    # a meta tensor takes the kernel's way and is only shaped: no launch
+    before = ops.attention.launches
+    out = ops.attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert ops.attention.launches == before
 
 
 def test_bf16_moves_bit_for_bit():
@@ -398,7 +404,9 @@ def test_flash_attention_fn_wiring(monkeypatch, causal):
     """FlashAttentionFn with its K1 launch stood in for by the plain version
     (there is no card here): the forward's output and the backward's
     gradients are those of autograd through the plain version."""
-    monkeypatch.setattr(tfa, "flash_attention", tref.attention_ref)
+    monkeypatch.setattr(torch.ops.repro_torch, "k1_fwd",
+                        lambda q, k, v, causal, q_offset: tref.attention_ref(
+                            q, k, v, causal=causal, q_offset=q_offset))
     rng = np.random.default_rng(32)
     (_, qt), (_, kt), (_, vt), (_, dt) = _bwd_inputs(rng, 2, 24, 24, 4, 2, 32)
     inputs = [t.requires_grad_(True) for t in (qt, kt, vt)]

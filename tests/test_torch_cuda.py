@@ -761,3 +761,42 @@ def test_mesh_train_step_at_world_size_one_matches_no_mesh(card, world_of_one):
     got = tree_flatten_with_path(mnew.params)
     for k, p in tree_flatten_with_path(new.params).items():
         torch.testing.assert_close(got[k].full_tensor(), p, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_k2_operators_are_the_launches(card, dtype):
+    """``repro_torch::k1_fwd`` / ``k2_fwd``, the operators FlashAttentionFn and
+    SSDScanFn call, give the launchers' outputs bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+    dt_ = TORCH_DTYPE[dtype]
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn((2, 200, 14, 64), generator=gen, device=card).to(dt_)
+    k, v = (torch.randn((2, 200, 2, 64), generator=gen, device=card).to(dt_) for _ in "kv")
+    for causal, off in ((True, 0), (False, 0)):
+        assert torch.equal(torch.ops.repro_torch.k1_fwd(q, k, v, causal, off),
+                           fa.flash_attention(q, k, v, causal=causal, q_offset=off))
+    assert torch.equal(torch.ops.repro_torch.k1_fwd(q[:, 100:].contiguous(), k, v, True, 100),
+                       fa.flash_attention(q[:, 100:].contiguous(), k, v, causal=True,
+                                          q_offset=100))
+    x, dt, A, B, C, init = _ssd_inputs(card, 2, 256, 8, 64, 128, dt_, dt_, with_init=True)
+    got = torch.ops.repro_torch.k2_fwd(x, dt, A, B, C, 128, init)
+    expect = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=128, init_state=init)
+    assert all(torch.equal(g, e) for g, e in zip(got, expect))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_on_a_tp4_ranks_local_heads_is_that_slice_of_the_whole(card, dtype):
+    """mamba2-2.7b's scan (80 heads of P 64, N 128, chunk 128) cut as each
+    rank of a model=4 mesh runs it (``ssm._local_ssd``: its 20 heads of x,
+    dt, A and the state, B/C whole): bit-equal to those heads of the whole
+    call, y and the final state."""
+    dt_ = TORCH_DTYPE[dtype]
+    x, dt, A, B, C, init = _ssd_inputs(card, 2, 256, 80, 64, 128, dt_, dt_, with_init=True)
+    y, st = ops.ssd(x, dt, A, B, C, chunk=128, init_state=init)
+    for r in range(4):
+        h = slice(20 * r, 20 * r + 20)
+        yl, stl = ops.ssd(x[:, :, h].contiguous(), dt[:, :, h].contiguous(), A[h].contiguous(),
+                          B, C, chunk=128, init_state=init[:, h].contiguous())
+        assert torch.equal(yl, y[:, :, h]) and torch.equal(stl, st[:, h]), r

@@ -4,8 +4,9 @@ plus sharded serving, local shards against JAX's and the production meshes.
 
 One world of 8 spawned ranks (``python tests/test_torch_distributed.py
 worker <rank> ...``, gloo over a ``file://`` rendezvous in the test's tmp
-dir, so parallel test workers never share a port) runs every check in
-turn and rank 0 writes the results; the test functions read them. The
+dir, so parallel test workers never share a port; ``tests/torch_world.py``
+spawns and joins them) runs every check in turn and rank 0 writes the
+results; the test functions read them. The
 ranks import no JAX. A rank that does not finish within ``TIMEOUT_S``
 fails the tests, it does not hang them.
 
@@ -380,42 +381,12 @@ def _batch():
             "labels": np.ascontiguousarray(toks[:, 1:])}
 
 
-def _run_world(tmp: Path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    procs = []
-    for r in range(WORLD):
-        log = open(tmp / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen([sys.executable, __file__, "worker", str(r), str(tmp)],
-                                       stdout=log, stderr=subprocess.STDOUT, env=env,
-                                       cwd=str(ROOT)), log))
-    return procs
-
-
-def _join(procs, tmp: Path, deadline: float):
-    """Wait for every rank; once one fails (its peers then wait on it for
-    ever) or the deadline passes, kill the rest."""
-    while time.monotonic() < deadline:
-        rcs = [p.poll() for p, _ in procs]
-        if all(rc is not None for rc in rcs) or any(rc not in (None, 0) for rc in rcs):
-            break
-        time.sleep(0.2)
-    for p, log in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-        log.close()
-    rcs = [p.returncode for p, _ in procs]
-    if any(rc != 0 for rc in rcs):
-        tails = "\n".join(f"--- rank {r} (rc {rc}):\n" + (tmp / f"rank{r}.log").read_text()[-3000:]
-                          for r, rc in enumerate(rcs) if rc not in (0, -9))
-        raise AssertionError(f"gloo world failed or timed out ({TIMEOUT_S} s):\n{tails}")
-
-
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Run the world once; the port's single-process references and the
     JAX package's beside it. Every run starts from the JAX init's weights
     (the elastic runs from their checkpoint at step 0)."""
+    from tests.torch_world import join_world, run_world
     from tests.util import run_subprocess
     tmp = tmp_path_factory.mktemp("gloo_world")
     cfg = _cfg()
@@ -426,7 +397,7 @@ def world(tmp_path_factory):
     ckpt = Checkpointer(tmp / "ckpt")
     ckpt.save(init_state(params), 0, blocking=True)
     deadline = time.monotonic() + TIMEOUT_S
-    procs = _run_world(tmp)
+    procs = run_world(__file__, WORLD, tmp)
     try:
         run_subprocess(_JAX.replace("TMP", repr(str(tmp))), devices=WORLD)
         train = _single_train(cfg, params, batch)
@@ -436,7 +407,7 @@ def world(tmp_path_factory):
         port["serve"] = port["serve_seq"] = port["serve_straddle"] = serve_logits(
             params, batch, None)
     finally:
-        _join(procs, tmp, deadline)
+        join_world(procs, tmp, deadline, TIMEOUT_S)
     jax_refs = pickle.loads((tmp / "jax_refs.pkl").read_bytes())
     for case in TRAIN_CASES:        # the step's mean gradient is the full batch's
         jax_refs[case].update(step_grads=jax_refs["grads"], **(

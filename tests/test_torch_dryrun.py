@@ -1,0 +1,276 @@
+"""The port's dry run (``repro_torch.launch.dryrun`` + ``trace_analysis``)
+against the JAX package's (``repro.launch.dryrun`` + ``hlo_analysis``).
+
+Each side runs in a subprocess: the port's on a process group of the
+``fake`` backend (one process plays rank 0 of the mesh, every local shard
+a meta tensor, nothing allocated), the JAX package's on 8 host devices
+(lowered and compiled, its optimized HLO parsed).
+
+The parity cell is qwen2-0.5b at full width cut to 2 layers, ``train_4k``
+cut to B=8, S=512, on a (data=4, model=2) mesh; both sides build it with
+their own ``build_cell`` (remat "full", grad_accum 2). Per-device FLOPs
+count the matrix products. The attention term is reported apart: JAX's
+``full_attention`` (dense below ``attn_dense_max``) computes all S x T
+scores, 8 products of 2*B*H*S*T*hd a layer under remat (the forward, its
+recompute, 4 in the backward); the port's K1 counts only the live
+(query, key) pairs of the causal mask (``flash_attention.flops``) in the
+forward and its recompute, and its tensor-op backward
+(``ref.attention_bwd``) 5 full products (the scores again, dV, dP, dQ,
+dK). The totals agree within 10%. ``argument_bytes`` (the local shards
+of the train state and the batch) equals JAX's ``argument_size_in_bytes``.
+
+The count of the port at 4 layers less its count at 2 equals 2 layers'
+local products reckoned from the shapes within 1%, and its count at 2
+layers equals the reckoned products of the whole step within 1%: DTensor
+runs each new op signature once on global shapes to propagate its
+sharding, which no rank does, and a count that saw those runs would be
+off by about the model's global products.
+
+Last, every arch x shape cell on the 256-rank production mesh, each cut
+to one segment, traces with status ``ok`` or, where ``shape_applicable``
+says so, ``skipped``.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+B, S = 8, 512
+MESH = (4, 2)
+LAYERS = 2
+FLOPS_TOL = 0.10
+RECKON_TOL = 0.01
+CELLS_TIMEOUT_S = 900
+
+_JAX = """
+import dataclasses, json
+import jax, numpy as np
+from repro.configs import get_config
+from repro.configs.base import ShapeConfig
+from repro.launch import hlo_analysis
+from repro.launch.dryrun import build_cell
+from repro.launch.mesh import make_mesh
+
+cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=LAYERS)
+shape = ShapeConfig("train_4k_cut", "train", S, B)
+mesh = make_mesh(MESH, ("data", "model"))
+jitted, kwargs = build_cell(cfg, shape, mesh)
+compiled = jitted.lower(*kwargs.values()).compile()
+stats = hlo_analysis.analyze(compiled.as_text())
+leaves = {}
+shardings = jax.tree_util.tree_leaves(compiled.input_shardings[0])
+args = jax.tree_util.tree_flatten_with_path(tuple(kwargs.values()))[0]
+assert len(shardings) == len(args)
+for (path, sds), sh in zip(args, shardings):
+    key = "/".join(str(getattr(k, "key", getattr(k, "name", getattr(k, "idx", k))))
+                   for k in path)
+    leaves[key] = int(np.prod(sh.shard_shape(sds.shape))) * np.dtype(sds.dtype).itemsize
+print(json.dumps({"flops": stats.flops,
+                  "argument_bytes": compiled.memory_analysis().argument_size_in_bytes,
+                  "collective_bytes": dict(stats.collective_bytes),
+                  "leaves": leaves}))
+"""
+
+_PORT = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.trace_analysis import TraceAnalysis
+from repro_torch.tree import tree_flatten_with_path
+
+dryrun.init_fake_world(MESH[0] * MESH[1])
+mesh = make_mesh(MESH, ("data", "model"))
+shape = ShapeConfig("train_4k_cut", "train", S, B)
+out = {}
+for layers in (LAYERS, 2 * LAYERS):
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=layers)
+    fn, kwargs = dryrun.build_cell(cfg, shape, mesh)
+    with TraceAnalysis() as ta:
+        fn(*kwargs.values())
+    leaves = {k: dryrun.local_bytes(v) for k, v in tree_flatten_with_path(kwargs).items()}
+    out[layers] = {"flops": ta.stats.flops, "flops_by_op": dict(ta.stats.flops_by_op),
+                   "argument_bytes": dryrun.local_bytes(kwargs),
+                   "collective_bytes": dict(ta.stats.collective_bytes),
+                   "leaves": leaves}
+print(json.dumps(out))
+"""
+
+
+def _run(code: str, env_extra: dict, timeout: int) -> str:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env_extra)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=timeout, env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-4000:]
+    return out.stdout
+
+
+def _fill(code: str) -> str:
+    return (code.replace("LAYERS", repr(LAYERS)).replace("MESH", repr(MESH))
+            .replace("S, B)", f"{S}, {B})"))
+
+
+@pytest.fixture(scope="module")
+def parity():
+    jax_out = json.loads(_run(_fill(_JAX), {
+        "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
+        "JAX_PLATFORMS": "cpu"}, 600).strip().splitlines()[-1])
+    port_out = json.loads(_run(_fill(_PORT), {}, 600).strip().splitlines()[-1])
+    return {"jax": jax_out, "port": {int(k): v for k, v in port_out.items()}}
+
+
+def _reckoned(layers: int) -> dict:
+    """The local products of the parity step on one device, from the shapes:
+    the layers' projections (forward, remat recompute, and the backward's
+    two products each: 8 * tokens * params, less the recompute of each
+    layer's last product, w2, which the checkpoint stops before: its output
+    is needed by no backward), their attention (K1's causal forward twice,
+    the backward's 5 full products), and the tied head (forward and two
+    backward products: 6 * tokens * D * V / tp)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=layers)
+    data, tp = MESH
+    d, hd, H, K, F = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    tokens = B * S // data                        # this device's rows, all micro-batches
+    per_layer = (d * H * hd * 2 + d * K * hd * 2 + 3 * d * F) // tp
+    linear = (8 * per_layer - 2 * F * d // tp) * tokens * layers
+    micro = 2                                      # dryrun.pick_grad_accum
+    bl, hl = B // data // micro, H // tp
+    attn = micro * layers * (2 * fa.flops(bl, S, S, hl, hd, True)
+                             + 5 * 2 * bl * hl * S * S * hd)
+    head = 6 * tokens * d * cfg.vocab_padded // tp
+    return {"linear": linear, "attention": attn, "head": head,
+            "total": linear + attn + head}
+
+
+def test_per_device_flops_match_hlo_analysis(parity):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    jax_flops, port_flops = parity["jax"]["flops"], parity["port"][LAYERS]["flops"]
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=LAYERS)
+    bl, hl, hd = B // MESH[0], cfg.n_heads // MESH[1], cfg.resolved_head_dim
+    # the attention term of each convention, reported apart
+    jax_attn = LAYERS * 8 * 2 * bl * hl * S * S * hd
+    port_attn = _reckoned(LAYERS)["attention"]
+    print(f"per-device FLOPs: JAX {jax_flops:.4e} (attention, all S x T scores, "
+          f"{jax_attn:.4e}), port {port_flops:.4e} (attention, K1 causal pairs + "
+          f"tensor-op backward, {port_attn:.4e}); rel diff "
+          f"{abs(port_flops - jax_flops) / jax_flops:.4f}")
+    assert abs(port_flops - jax_flops) <= FLOPS_TOL * jax_flops
+    assert abs((port_flops - port_attn) - (jax_flops - jax_attn)) <= \
+        FLOPS_TOL * (jax_flops - jax_attn)
+    # K1: the forward and its remat recompute, each micro-batch (grad_accum 2)
+    k1 = 2 * 2 * LAYERS * fa.flops(bl // 2, S, S, hl, hd, True)
+    assert parity["port"][LAYERS]["flops_by_op"]["repro_torch.k1_fwd"] == k1
+
+
+def test_argument_bytes_equal_jax(parity):
+    jax_out, port = parity["jax"], parity["port"][LAYERS]
+    if port["argument_bytes"] != jax_out["argument_bytes"]:
+        names = {k.split("/")[-1]: v for k, v in port["leaves"].items()}
+        diff = {k: (names.get(k.split("/")[-1]), v) for k, v in jax_out["leaves"].items()
+                if names.get(k.split("/")[-1]) != v}
+        pytest.fail(f"argument bytes: port {port['argument_bytes']}, JAX "
+                    f"{jax_out['argument_bytes']}; leaves that differ: {diff}")
+    assert sum(port["leaves"].values()) == port["argument_bytes"]
+
+
+def test_collective_bytes_counted(parity):
+    port = parity["port"][LAYERS]["collective_bytes"]
+    assert sum(port.values()) > 0 and port.get("all-gather", 0) > 0, port
+    assert sum(parity["jax"]["collective_bytes"].values()) > 0
+
+
+def test_no_global_shape_propagation_is_counted(parity):
+    """4 layers less 2 is 2 layers' local products; 2 layers is the
+    reckoned step. A propagation run counted would add global products."""
+    two, four = parity["port"][LAYERS]["flops"], parity["port"][2 * LAYERS]["flops"]
+    layers_2 = _reckoned(2 * LAYERS)["total"] - _reckoned(LAYERS)["total"]
+    assert abs((four - two) - layers_2) <= RECKON_TOL * layers_2, (four - two, layers_2)
+    total = _reckoned(LAYERS)["total"]
+    assert abs(two - total) <= RECKON_TOL * total, (two, total)
+
+
+# the archs of the cells' three subprocesses, about equal in trace time
+CELL_GROUPS = ("zamba2-1.2b", "mamba2-2.7b,llama-3.2-vision-11b,deepseek-67b,musicgen-medium",
+               "gemma-7b,llama4-scout-17b-a16e,qwen2-0.5b,qwen2-1.5b,qwen2-moe-a2.7b")
+
+
+def test_every_cell_traces_on_the_production_mesh(tmp_path):
+    """In ``CELL_GROUPS``' three subprocesses at once, each with its own
+    ``fake`` world of 256 ranks."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", archs, "--shape", "all",
+         "--segment", "--out", str(tmp_path)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT)) for archs in CELL_GROUPS]
+    try:
+        outs = [p.communicate(timeout=CELLS_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cells = [json.loads(p.read_text()) for p in sorted(tmp_path.glob("*.json"))]
+    errors = {f"{c['arch']} x {c['shape']}": c.get("error") for c in cells
+              if c["status"] == "error"}
+    assert all(p.returncode == 0 for p in procs) and not errors, (
+        errors, [(o[0][-2000:], o[1][-2000:]) for o in outs])
+    from repro_torch.configs import REGISTRY, SHAPES, get_config, shape_applicable
+    assert len(cells) == len(REGISTRY) * len(SHAPES) == 40
+    for c in cells:
+        expect = "ok" if shape_applicable(get_config(c["arch"]), SHAPES[c["shape"]]) else "skipped"
+        assert c["status"] == expect, c
+        if expect == "ok":
+            assert c["n_chips"] == 256 and c["trace_per_device"]["flops"] > 0, c
+            assert c["memory_analysis"]["argument_bytes"] > 0, c
+
+
+def test_perf_variants_are_the_references_but_attention_dispatch(tmp_path):
+    """``launch/perf.py``'s variants: the JAX package's, less the three that
+    size its attention dispatch (one K1 call serves every length), and one
+    traced through the CLI to a tagged artifact."""
+    import re
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.perf import variants_for
+    text = (ROOT / "src/repro/launch/perf.py").read_text()
+    reference = set(re.findall(r'^\s+"(\w+)": \(', text, flags=re.M))
+    port = set(variants_for(get_config("qwen2-0.5b"), SHAPES["train_4k"]))
+    assert reference - port == {"chunk512", "chunk2048", "densattn"}
+    assert port <= reference
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.perf", "--cell",
+         "qwen2-moe-a2.7b:prefill_32k", "--variant", "moegroup4096", "--segment",
+         "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    cell = json.loads((tmp_path / "qwen2-moe-a2.7b__prefill_32k__pod16x16__moegroup4096.json")
+                      .read_text())
+    assert cell["status"] == "ok" and cell["tag"] == "moegroup4096", cell
+
+
+def card_check(out_dir: Path) -> None:
+    """The port's side of these tests, without JAX (the card's machine has
+    none, and its torch may differ from the tests'): the reckoning of the
+    parity cell and every cell on the production mesh. ``python
+    tests/test_torch_dryrun.py card-check <dir>``."""
+    port_out = json.loads(_run(_fill(_PORT), {}, 600).strip().splitlines()[-1])
+    test_no_global_shape_propagation_is_counted({"port": {int(k): v
+                                                          for k, v in port_out.items()}})
+    test_every_cell_traces_on_the_production_mesh(out_dir)
+    print(f"CARD_CHECK_OK: per-device FLOPs of the parity cell {port_out[str(LAYERS)]['flops']:.4e}"
+          f" (reckoned {_reckoned(LAYERS)['total']:.4e}); every cell ok or skipped")
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["card-check"]:
+    sys.path.insert(0, str(ROOT / "src"))
+    card_check(Path(sys.argv[2]))

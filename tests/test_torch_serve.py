@@ -337,7 +337,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 80, mods\n"
+        "assert len(mods) >= 83, mods\n"
         "named = {'repro_torch.optim.adamw', 'repro_torch.parallel.compression',\n"
         "         'repro_torch.runtime.train', 'repro_torch.data.pipeline',\n"
         "         'repro_torch.checkpoint.checkpointer', 'repro_torch.tree',\n"
@@ -352,7 +352,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "         'repro_torch.core', 'repro_torch.core.policy',\n"
         "         'repro_torch.parallel.mesh', 'repro_torch.parallel.sharding',\n"
         "         'repro_torch.parallel.overlap', 'repro_torch.runtime.elastic',\n"
-        "         'repro_torch.launch', 'repro_torch.launch.mesh'}\n"
+        "         'repro_torch.launch', 'repro_torch.launch.mesh',\n"
+        "         'repro_torch.launch.trace_analysis', 'repro_torch.launch.dryrun',\n"
+        "         'repro_torch.launch.perf'}\n"
         "named |= {f'repro_torch.core.{m}' for m in (\n"
         "    'autoscaler', 'baselines', 'calibration', 'chaos', 'cluster', 'dag',\n"
         "    'descheduler', 'engine', 'events', 'gateway', 'informer', 'injector',\n"

@@ -333,5 +333,12 @@ def test_k2_launcher_refusals():
         tssd.ssd_scan(x[..., :6], dt, A, B, C, chunk=16)
     with pytest.raises(ValueError, match="state size"):
         tssd.ssd_scan(x, dt, A, B[..., :6], C[..., :6], chunk=16)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ops.ssd(*(t.to("meta") for t in (x, dt, A, B, C)), chunk=16)
+    # the operator of the launch has no CPU implementation
+    with pytest.raises(NotImplementedError, match="CPU"):
+        torch.ops.repro_torch.k2_fwd(x, dt, A, B, C, 16, None)
+    # a meta tensor takes the kernel's way and is only shaped: no launch
+    before = ops.ssd.launches
+    y, st = ops.ssd(*(t.to("meta") for t in (x, dt, A, B, C)), chunk=16)
+    assert y.device.type == st.device.type == "meta"
+    assert y.shape == x.shape and st.shape == (1, 2, 8, 16) and st.dtype == torch.float32
+    assert ops.ssd.launches == before
