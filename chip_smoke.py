@@ -206,9 +206,12 @@ Phases; any failure exits non-zero and prints no result line:
    ``build_train_step(cfg, mesh)`` on phase 5's seeded state (distributed
    into the shardings) and batches (``shard_batch``): losses within
    ``MESH_STEP_TOL`` of phase 5's (whether bit-equal is printed), 24 K1
-   launches a step, the median step ms beside phase 5's and the peak
-   memory. (c) Phase 3's qwen2-0.5b request through the mesh's
-   ``build_prefill_step`` / ``build_decode_step``: the same greedy tokens,
+   launches a step, the loss on the vocab-sharded CE once a step
+   (``count_sharded_ce``: the logits are ``Shard`` on the model dim of
+   size 1, so the CE's all-reduces run over NCCL groups of one), the
+   median step ms beside phase 5's and the peak memory. (c) Phase 3's
+   qwen2-0.5b request through the mesh's ``build_prefill_step`` /
+   ``build_decode_step``: the same greedy tokens,
    24 K1 launches a prefill, none a decode step. (d) ``ElasticRunner`` at
    world size 1 (no mesh, as in the JAX package): 10 steps checkpointed
    every 5, then a new runner on the same directory restores step 10 and
@@ -221,15 +224,19 @@ Phases; any failure exits non-zero and prints no result line:
    [3]'s tokens. (g) zamba2-1.2b's 8 train
    steps on the mesh under [7]'s settings: losses within
    ``MESH_STEP_TOL`` of [7] (b)'s (bit-equal printed), {6, 76} launches a
-   step; then K2 as each rank of a model=4 mesh runs it on its local
-   heads (mamba2-2.7b 80 -> 20, zamba2-1.2b 64 -> 16), bit-equal to those
+   step, the vocab-sharded CE once a step; then K2 as each rank of a
+   model=4 mesh runs it on its local heads (mamba2-2.7b 80 -> 20,
+   zamba2-1.2b 64 -> 16), bit-equal to those
    heads of the whole call in bf16 and f32, timed beside its bound.
 11. The dry run (``python -m repro_torch.launch.dryrun`` in a
    subprocess, ``fake`` backend, 256 ranks, meta tensors): qwen2-0.5b
    ``train_4k`` at full depth and ``prefill_32k`` of each other family
    at one segment; per device FLOPs, collective and argument bytes and
    the roofline terms (arithmetic on data-sheet peaks); an erring cell
-   fails the run.
+   fails the run. The full-depth cell's temporaries a device are printed
+   beside JAX's (``JAX_DRYRUN_FULL_TEMP_BYTES``, compiled on a CPU) with
+   the storages that hold its peak, and its arguments + temp must fit
+   ``DRYRUN_DEVICE_BYTES``.
 12. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the served models' prefills, ``launches_by_arch`` per model,
    ``decode_launches_per_step_by_arch`` where a decode step launches it,
@@ -383,6 +390,13 @@ DRYRUN_SEGMENT_SHAPE = "prefill_32k"               # each other family, one segm
 DRYRUN_SEGMENT_ARCHS = ("gemma-7b", "qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-1.2b",
                         "musicgen-medium", "llama-3.2-vision-11b")
 DRYRUN_TIMEOUT_S = 420
+DRYRUN_DEVICE_BYTES = 79e9        # the card's usable memory: arguments + temp of DRYRUN_FULL
+# JAX's temp_size_in_bytes of DRYRUN_FULL at full depth on the 16x16 mesh,
+# compiled on a CPU by the JAX package's own dry run (PYTHONPATH=src python -m
+# repro.launch.dryrun --arch qwen2-0.5b --shape train_4k); the card has no JAX.
+# tests/test_torch_dryrun.py::test_train_4k_temporaries_within_twice_jax
+# compiles its 2-layer cut (5.23 GB) and holds the port's trace to it
+JAX_DRYRUN_FULL_TEMP_BYTES = 5.41e9
 ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_MORE = 10, 5, 2
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
@@ -949,6 +963,24 @@ def record_routing(log: list):
         yield
     finally:
         moe.top_k, moe.route = top_k, route
+
+
+@contextlib.contextmanager
+def count_sharded_ce(calls: list):
+    """Append the local logits' shape to ``calls`` at each call of the
+    loss on a vocab-sharded DTensor (``layers._sharded_cross_entropy``,
+    the mesh path's CE on each rank's columns). For a check only."""
+    from repro_torch.models import layers
+    sharded = layers._sharded_cross_entropy
+
+    def counting(logits, labels, vocab_size):
+        calls.append(tuple(logits.to_local().shape))
+        return sharded(logits, labels, vocab_size)
+    layers._sharded_cross_entropy = counting
+    try:
+        yield
+    finally:
+        layers._sharded_cross_entropy = sharded
 
 
 def routing_diff(log_a, log_b) -> dict:
@@ -2044,6 +2076,18 @@ def dry_run_cells() -> list:
                   f"useful_flops_ratio {c['useful_flops_ratio']:.3f}", flush=True)
             cells.append(c)
     _check(len(cells) == 1 + len(DRYRUN_SEGMENT_ARCHS), f"{len(cells)} dry-run cells")
+    full = next(c for c in cells if (c["arch"], c["shape"]) == DRYRUN_FULL)
+    ma = full["memory_analysis"]
+    print(f"[11] {DRYRUN_FULL[0]} x {DRYRUN_FULL[1]} at full depth, a device: temp "
+          f"{ma['temp_bytes'] / 1e9:.3f} GB (JAX's temp_size_in_bytes, compiled on a CPU: "
+          f"{JAX_DRYRUN_FULL_TEMP_BYTES / 1e9:.2f} GB; "
+          f"{ma['temp_bytes'] / JAX_DRYRUN_FULL_TEMP_BYTES:.3f}x), arguments + temp "
+          f"{ma['peak_bytes_per_device'] / 1e9:.3f} GB (limit {DRYRUN_DEVICE_BYTES / 1e9:g} GB); "
+          f"held at the peak by " + "; ".join(
+              f"{h['bytes'] / 1e9:.3f} GB {h['op']} {h['dtype']}{h['shape']} x{h['count']}"
+              for h in ma["peak_holders"][:3]), flush=True)
+    _check(ma["peak_bytes_per_device"] <= DRYRUN_DEVICE_BYTES,
+           f"{DRYRUN_FULL}: {ma['peak_bytes_per_device']} B a device")
     return cells
 
 
@@ -2123,8 +2167,10 @@ def mesh_paths(cfg, trained: dict, served_tokens: dict, serve_ms: dict,
     mesh = init_world_of_one()
     print(f"[10] world of {dist.get_world_size()} ({dist.get_backend()}), mesh "
           f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}", flush=True)
-    res = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=TRAIN_STEPS,
-                mesh=mesh)
+    ce_calls = []
+    with count_sharded_ce(ce_calls):
+        res = train(cfg, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
+                    steps=TRAIN_STEPS, mesh=mesh)
     losses = [m["loss"] for m in res["metrics"]]
     plain = [m["loss"] for m in trained["metrics"]]
     diff = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
@@ -2139,9 +2185,11 @@ def mesh_paths(cfg, trained: dict, served_tokens: dict, serve_ms: dict,
           f"{res['tokens_per_s']:.1f} trained tokens/s, max_memory_allocated "
           f"{res['max_memory_allocated']} B ([5]: {trained['max_memory_allocated']} B); "
           f"losses vs [5]: max rel diff {diff:.3e} (tol {MESH_STEP_TOL:g}), bit-equal "
-          f"{losses == plain}", flush=True)
+          f"{losses == plain}; the loss on the vocab-sharded CE {len(ce_calls)} times, "
+          f"local logits {sorted(set(ce_calls))}", flush=True)
     per_step = {"attention": cfg.n_layers, "ssd": 0}
     _check(diff <= MESH_STEP_TOL, f"mesh train losses {losses} vs no mesh {plain}")
+    _check(len(ce_calls) == TRAIN_STEPS, f"the vocab-sharded CE ran {len(ce_calls)} times")
     _check(all(la == per_step for la in res["launches_per_step"]),
            f"mesh train steps launched {res['launches_per_step']}, not {per_step} each")
     mesh_train = {ARCH: {"median_step_ms": res["median_step_ms"],
@@ -2235,8 +2283,10 @@ def mesh_paths(cfg, trained: dict, served_tokens: dict, serve_ms: dict,
 
     # (g): zamba2-1.2b's train steps on the mesh against [7]'s; K2 on local heads
     hyb = get_config(HYBRID_ARCH)
-    tr = train(hyb, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=TRAIN_STEPS,
-               rc=remat_rc, lr=TRAIN_7_LR, mesh=mesh)
+    ce_calls = []
+    with count_sharded_ce(ce_calls):
+        tr = train(hyb, device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
+                   steps=TRAIN_STEPS, rc=remat_rc, lr=TRAIN_7_LR, mesh=mesh)
     losses = [m["loss"] for m in tr["metrics"]]
     diff = max(abs(a - b) / abs(b) for a, b in zip(losses, hybrid_losses))
     per_step = expected_train_launches(hyb, remat_rc)
@@ -2245,10 +2295,12 @@ def mesh_paths(cfg, trained: dict, served_tokens: dict, serve_ms: dict,
           f"losses {losses} ([7] (b): {hybrid_losses}; max rel diff {diff:.3e}, tol "
           f"{MESH_STEP_TOL:g}, bit-equal {losses == hybrid_losses}); median step (2-"
           f"{TRAIN_STEPS}) {tr['median_step_ms']:.3f} ms, max_memory_allocated "
-          f"{tr['max_memory_allocated']} B; launches a step {tr['launches_per_step']}",
-          flush=True)
+          f"{tr['max_memory_allocated']} B; launches a step {tr['launches_per_step']}; "
+          f"the loss on the vocab-sharded CE {len(ce_calls)} times, local logits "
+          f"{sorted(set(ce_calls))}", flush=True)
     _check(diff <= MESH_STEP_TOL, f"{HYBRID_ARCH} mesh train losses {losses} vs "
            f"{hybrid_losses}")
+    _check(len(ce_calls) == TRAIN_STEPS, f"the vocab-sharded CE ran {len(ce_calls)} times")
     _check(all(la == per_step for la in tr["launches_per_step"]),
            f"{HYBRID_ARCH} mesh train steps launched {tr['launches_per_step']}, not {per_step}")
     mesh_train[HYBRID_ARCH] = {"median_step_ms": tr["median_step_ms"],

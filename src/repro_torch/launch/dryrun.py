@@ -234,6 +234,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
             "temp_bytes": stats.peak_live_bytes,
             "alias_bytes": 0,
             "peak_bytes_per_device": arg_b + stats.peak_live_bytes,
+            "peak_holders": stats.peak_holders,
         },
         "trace_per_device": {
             "flops": stats.flops,
@@ -258,6 +259,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
         print(f"  memory_analysis: args={ma['argument_bytes']/1e9:.2f}GB "
               f"temp={ma['temp_bytes']/1e9:.2f}GB "
               f"peak/device={ma['peak_bytes_per_device']/1e9:.2f}GB")
+        print("  temp held at its peak by: " + "; ".join(
+            f"{h['bytes']/1e9:.3f}GB {h['op']} {h['dtype']}{h['shape']} x{h['count']}"
+            for h in ma["peak_holders"][:3]))
         print(f"  trace/dev: flops={stats.flops:.3e} "
               f"mem={stats.mem_bytes/1e9:.2f}GB "
               f"coll={stats.total_collective_bytes/1e9:.3f}GB "

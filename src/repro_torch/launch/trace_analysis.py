@@ -25,6 +25,9 @@ sequence of ops on local shards; ``TraceAnalysis``, a
                             ``collective_counts``
   * ``peak_live_bytes``  -- the high-water mark of the bytes of the
                             storages made during the step and still alive
+  * ``peak_holders``     -- the storages alive at that mark, summed by the
+                            op, shape and dtype that made them, largest
+                            first (``PEAK_HOLDERS`` of them)
 
 Only local ops count. An op with a DTensor argument is left to DTensor
 (``NotImplemented``), which then runs it on the local shards, seen
@@ -63,6 +66,7 @@ _COLLECTIVES = (("all_gather", "all-gather"), ("allgather", "all-gather"),
 _COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d", "c10d_functional")
 # ops that move no data (views are skipped by their schema)
 _FREE = {"wait_tensor", "detach", "alias", "lift_fresh", "_local_scalar_dense"}
+PEAK_HOLDERS = 8
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -91,6 +95,7 @@ class TraceStats:
     collective_bytes: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
     collective_counts: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
     peak_live_bytes: int = 0
+    peak_holders: list = field(default_factory=list)
 
     @property
     def total_collective_bytes(self) -> float:
@@ -115,6 +120,7 @@ class TraceAnalysis(TorchDispatchMode):
         self.stats = TraceStats()
         self._live: Dict[int, tuple] = {}
         self._live_bytes = 0
+        self._at_peak: Dict[int, tuple] = {}
         self._propagating = 0
         self._patch = None
 
@@ -147,9 +153,19 @@ class TraceAnalysis(TorchDispatchMode):
             return super().__exit__(*exc)
         finally:
             self._patch.__exit__(*exc)
+            self.stats.peak_holders = self._holders()
+
+    def _holders(self) -> list:
+        by = defaultdict(lambda: [0, 0])
+        for _, n, made in self._at_peak.values():
+            by[made][0] += n
+            by[made][1] += 1
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:PEAK_HOLDERS]
+        return [{"op": op, "shape": list(shape), "dtype": dtype, "bytes": n, "count": c}
+                for (op, shape, dtype), (n, c) in top]
 
     # -- live storages ----------------------------------------------------
-    def _track(self, out, args) -> None:
+    def _track(self, out, args, func) -> None:
         seen = {id(t.untyped_storage()) for t in _tensors(args)}
         for t in _tensors(out):
             st = t.untyped_storage()
@@ -157,9 +173,12 @@ class TraceAnalysis(TorchDispatchMode):
             if key in seen or key in self._live:
                 continue
             n = st.nbytes()
-            self._live[key] = (weakref.ref(st, self._release(key)), n)
+            made = (str(func._overloadpacket), tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            self._live[key] = (weakref.ref(st, self._release(key)), n, made)
             self._live_bytes += n
-            self.stats.peak_live_bytes = max(self.stats.peak_live_bytes, self._live_bytes)
+            if self._live_bytes > self.stats.peak_live_bytes:
+                self.stats.peak_live_bytes = self._live_bytes
+                self._at_peak = dict(self._live)
 
     def _release(self, key):
         def release(_):
@@ -190,5 +209,5 @@ class TraceAnalysis(TorchDispatchMode):
             self.stats.flops_by_op[str(func._overloadpacket)] += n
         self.stats.mem_bytes += sum(_nbytes(t) for t in ins) + sum(
             _nbytes(t) for t in _tensors(out))
-        self._track(out, (args, kwargs))
+        self._track(out, (args, kwargs), func)
         return out

@@ -7,9 +7,11 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.parallel.mesh import reduce_partial, replicate_like, unshard_dim
+from repro_torch.parallel.mesh import local_offset, reduce_partial, replicate_like, unshard_dim
 
 
 def _no_constrain(x, logical_axes):
@@ -188,15 +190,100 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
     The padded slots (index >= ``vocab_size``) are set to -1e9 before the
     log-sum-exp, as in the JAX package, so they take no probability and
-    receive no gradient.
+    receive no gradient. A DTensor whose vocab is sharded is reduced on
+    each rank's columns (``_VocabShardedCE``): no rank gathers the vocab.
     """
+    if _vocab_mesh_dims(logits):
+        return _sharded_cross_entropy(logits, labels, vocab_size)
     vp = logits.shape[-1]
-    # DTensor's gather of the gold logit from a vocab-sharded DTensor (a
-    # masked partial) fails on its reduction; the vocab is gathered first
-    logits = unshard_dim(logits, -1).float()
+    logits = logits.float()
     if vp > vocab_size:
         pad_mask = torch.arange(vp, device=logits.device) >= vocab_size
         logits = logits.masked_fill(replicate_like(pad_mask, logits), -1e9)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return logz - gold
+
+
+def _vocab_mesh_dims(logits) -> list:
+    """The mesh dims that shard the last dim of a DTensor ``logits``."""
+    if not isinstance(logits, DTensor):
+        return []
+    last = logits.ndim - 1
+    return [i for i, p in enumerate(logits.placements) if isinstance(p, Shard) and p.dim == last]
+
+
+def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
+    for group in groups:
+        x = funcol.all_reduce(x, op, group)
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
+    return x
+
+
+def _masked_local(x: torch.Tensor, v0: int, vocab_size: int) -> torch.Tensor:
+    """A new f32 copy of this rank's columns [v0, v0 + width) of the
+    logits, its padded ones (global index >= ``vocab_size``) set to -1e9;
+    the callers work on it in place, so one f32 copy is alive at a time."""
+    xf = x.to(torch.float32, copy=True)
+    if v0 + x.shape[-1] > vocab_size:
+        cols = torch.arange(v0, v0 + x.shape[-1], device=x.device)
+        xf.masked_fill_(cols >= vocab_size, -1e9)
+    return xf
+
+
+class _VocabShardedCE(torch.autograd.Function):
+    """The CE of each row on this rank's columns [v0, v0 + width) of the
+    logits, the row's max, gold logit and sum of exponentials all-reduced
+    over ``groups`` (the process groups of the mesh dims that shard the
+    vocab): three all-reduces of one f32 a row. The backward needs no
+    collective: each rank's columns get ``(softmax - onehot) * g``, the
+    padded ones exactly 0 (exp(-1e9 - lse) underflows to 0). It saves the
+    logits as they came (bf16 under the compute dtype) and the row's
+    log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, x, labels, v0: int, vocab_size: int, groups):
+        xf = _masked_local(x, v0, vocab_size)
+        rows, width = xf.shape[:-1], xf.shape[-1]
+        idx = labels.long() - v0
+        gold = torch.zeros(rows, device=xf.device)
+        if width:
+            m = xf.amax(dim=-1)
+            gold = torch.where((idx >= 0) & (idx < width), torch.gather(
+                xf, -1, idx.clamp(0, width - 1)[..., None])[..., 0], gold)
+        else:                                    # an empty shard of an uneven cut
+            m = torch.full(rows, float("-inf"), device=xf.device)
+        m = _all_reduce(m, "max", groups)
+        gold = _all_reduce(gold, "sum", groups)
+        s = _all_reduce(xf.sub_(m[..., None]).exp_().sum(dim=-1), "sum", groups)
+        lse = torch.log(s) + m
+        ctx.save_for_backward(x, idx, lse)
+        ctx.v0, ctx.vocab_size = v0, vocab_size
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, lse = ctx.saved_tensors
+        grad = _masked_local(x, ctx.v0, ctx.vocab_size).sub_(lse[..., None]).exp_()
+        width = grad.shape[-1]
+        if width:
+            here = ((idx >= 0) & (idx < width)).to(grad.dtype)
+            grad.scatter_add_(-1, idx.clamp(0, width - 1)[..., None], -here[..., None])
+        return grad.mul_(g[..., None]).to(x.dtype), None, None, None, None
+
+
+def _sharded_cross_entropy(logits: DTensor, labels, vocab_size: int) -> DTensor:
+    """``softmax_cross_entropy`` of logits whose vocab is sharded: the
+    per-row loss as a DTensor in the rows' placements (the logits' own,
+    with the vocab's mesh dims replicated); the logits' gradient comes
+    back in their own placements, vocab-sharded."""
+    logits = reduce_partial(logits)
+    mesh, dims = logits.device_mesh, _vocab_mesh_dims(logits)
+    rows_pl = [Replicate() if i in dims else p for i, p in enumerate(logits.placements)]
+    if not isinstance(labels, DTensor):
+        labels = replicate_like(labels, logits)
+    labels = labels.redistribute(mesh, rows_pl).to_local()
+    loss = _VocabShardedCE.apply(logits.to_local(), labels, local_offset(logits, -1),
+                                 vocab_size, [mesh.get_group(i) for i in dims])
+    return DTensor.from_local(loss, mesh, rows_pl, run_check=False)

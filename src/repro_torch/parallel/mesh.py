@@ -123,15 +123,21 @@ def to_placements(mesh, spec: Sequence, ndim: int) -> tuple:
 
 
 def local_offset(x: DTensor, dim: int) -> int:
-    """Global index of the first element of this rank's shard of ``x`` along ``dim``."""
+    """Global index of the first element of this rank's shard of ``x`` along ``dim``.
+
+    DTensor cuts a dim as ``torch.chunk`` does, mesh dim by mesh dim (the
+    first the major): pieces of ``ceil(size / n)``, the last ones shorter
+    or empty where ``n`` does not divide the size.
+    """
     mesh = x.device_mesh
-    index, parts = 0, 1
+    dim %= x.ndim
+    offset, size = 0, x.shape[dim]
     for i, p in enumerate(x.placements):
         if isinstance(p, Shard) and p.dim == dim:
-            n = mesh.size(i)
-            index = index * n + mesh.get_local_rank(i)
-            parts *= n
-    return index * (x.shape[dim] // parts)
+            piece = -(-size // mesh.size(i))
+            start = min(piece * mesh.get_local_rank(i), size)
+            offset, size = offset + start, min(piece, size - start)
+    return offset
 
 
 def shard_count(x, dim: int) -> int:

@@ -26,6 +26,12 @@ runs each new op signature once on global shapes to propagate its
 sharding, which no rank does, and a count that saw those runs would be
 off by about the model's global products.
 
+qwen2-0.5b ``train_4k`` itself (B=256, S=4096) cut to 2 layers on the
+16x16 production mesh sets the port's temporaries a device (the traced
+step's live-storage high-water mark) beside JAX's ``temp_size_in_bytes``:
+at most twice JAX's, which holds because the loss runs on each rank's
+vocab shard.
+
 Last, every arch x shape cell on the 256-rank production mesh, each cut
 to one segment, traces with status ``ok`` or, where ``shape_applicable``
 says so, ``skipped``.
@@ -69,8 +75,10 @@ for (path, sds), sh in zip(args, shardings):
     key = "/".join(str(getattr(k, "key", getattr(k, "name", getattr(k, "idx", k))))
                    for k in path)
     leaves[key] = int(np.prod(sh.shard_shape(sds.shape))) * np.dtype(sds.dtype).itemsize
+mem = compiled.memory_analysis()
 print(json.dumps({"flops": stats.flops,
-                  "argument_bytes": compiled.memory_analysis().argument_size_in_bytes,
+                  "argument_bytes": mem.argument_size_in_bytes,
+                  "temp_bytes": mem.temp_size_in_bytes,
                   "collective_bytes": dict(stats.collective_bytes),
                   "leaves": leaves}))
 """
@@ -96,6 +104,7 @@ for layers in (LAYERS, 2 * LAYERS):
     leaves = {k: dryrun.local_bytes(v) for k, v in tree_flatten_with_path(kwargs).items()}
     out[layers] = {"flops": ta.stats.flops, "flops_by_op": dict(ta.stats.flops_by_op),
                    "argument_bytes": dryrun.local_bytes(kwargs),
+                   "temp_bytes": ta.stats.peak_live_bytes,
                    "collective_bytes": dict(ta.stats.collective_bytes),
                    "leaves": leaves}
 print(json.dumps(out))
@@ -174,6 +183,9 @@ def test_per_device_flops_match_hlo_analysis(parity):
 
 def test_argument_bytes_equal_jax(parity):
     jax_out, port = parity["jax"], parity["port"][LAYERS]
+    print(f"per-device bytes: arguments port {port['argument_bytes']}, JAX "
+          f"{jax_out['argument_bytes']}; temporaries port {port['temp_bytes']} (the live "
+          f"storages' high-water mark), JAX {jax_out['temp_bytes']} (temp_size_in_bytes)")
     if port["argument_bytes"] != jax_out["argument_bytes"]:
         names = {k.split("/")[-1]: v for k, v in port["leaves"].items()}
         diff = {k: (names.get(k.split("/")[-1]), v) for k, v in jax_out["leaves"].items()
@@ -197,6 +209,74 @@ def test_no_global_shape_propagation_is_counted(parity):
     assert abs((four - two) - layers_2) <= RECKON_TOL * layers_2, (four - two, layers_2)
     total = _reckoned(LAYERS)["total"]
     assert abs(two - total) <= RECKON_TOL * total, (two, total)
+
+
+# qwen2-0.5b train_4k at full width and batch, cut to PROD_LAYERS layers, on
+# the 16x16 production mesh: the port's temporaries against JAX's
+PROD_LAYERS = 2
+PROD_TEMP_RATIO = 2.0
+
+_JAX_PROD = """
+import dataclasses, json
+from repro.configs import SHAPES, get_config
+from repro.launch.dryrun import build_cell
+from repro.launch.mesh import make_production_mesh
+
+cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=LAYERS)
+jitted, kwargs = build_cell(cfg, SHAPES["train_4k"], make_production_mesh(multi_pod=False))
+mem = jitted.lower(*kwargs.values()).compile().memory_analysis()
+print(json.dumps({"temp_bytes": mem.temp_size_in_bytes,
+                  "argument_bytes": mem.argument_size_in_bytes}))
+"""
+
+_PORT_PROD = """
+import dataclasses, json
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.trace_analysis import TraceAnalysis
+
+dryrun.init_fake_world(256)
+cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=LAYERS)
+fn, kwargs = dryrun.build_cell(cfg, SHAPES["train_4k"], make_production_mesh(multi_pod=False))
+with TraceAnalysis() as ta:
+    fn(*kwargs.values())
+print(json.dumps({"temp_bytes": ta.stats.peak_live_bytes,
+                  "argument_bytes": dryrun.local_bytes(kwargs),
+                  "collective_counts": dict(ta.stats.collective_counts)}))
+"""
+
+
+def test_train_4k_temporaries_within_twice_jax():
+    """The port's temporaries a device (the live storages' high-water mark
+    of the traced step) at most ``PROD_TEMP_RATIO`` times JAX's
+    ``temp_size_in_bytes`` on the same cell: the loss runs on each rank's
+    vocab shard (152,064 columns over model = 16), as XLA partitions
+    JAX's. Gathering the logits' vocab made the port's 379.1 GB against
+    JAX's 5.23. Both sides run at once (JAX's ``repro.launch.dryrun`` makes
+    512 host devices as it is imported; the mesh takes 256)."""
+    def start(code, env_extra):
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env_extra)
+        return subprocess.Popen([sys.executable, "-c", code.replace("LAYERS", repr(PROD_LAYERS))],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=env, cwd=str(ROOT))
+    procs = [start(_JAX_PROD, {"JAX_PLATFORMS": "cpu"}), start(_PORT_PROD, {})]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    jax_out, port = (json.loads(o.strip().splitlines()[-1]) for o, _ in outs)
+    print(f"qwen2-0.5b train_4k, {PROD_LAYERS} layers, 16x16: temporaries a device port "
+          f"{port['temp_bytes'] / 1e9:.3f} GB, JAX {jax_out['temp_bytes'] / 1e9:.3f} GB "
+          f"({port['temp_bytes'] / jax_out['temp_bytes']:.3f}x); collectives "
+          f"{port['collective_counts']}")
+    assert port["argument_bytes"] == jax_out["argument_bytes"]
+    assert port["temp_bytes"] <= PROD_TEMP_RATIO * jax_out["temp_bytes"], (port, jax_out)
 
 
 # the archs of the cells' three subprocesses, about equal in trace time
