@@ -379,6 +379,9 @@ OFFSET_TPS = (2, 4)               # row blocks of qwen2-0.5b's prefill, one per 
 OFFSET_TIMED = (4, 3)             # (tp, rank): the 128-row block at q_offset 384
 OFFSET_WHOLE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # the blocks vs the unsharded K1
 MESH_STEP_TOL = 1e-4              # mesh train losses vs [5]'s (tests/test_torch_train.py)
+# (h): qwen2-0.5b's steps at grad_accum 2 on the (1, 1) mesh against the same
+# steps without a mesh: the mesh step cuts its micro-batches as one process does
+MESH_ACCUM, MESH_ACCUM_STEPS = 2, 2
 # the other families served on the (1, 1) mesh, [3]'s request each (the same
 # decode steps: a bf16 decode's rounding depends on the cache's length)
 MESH_SERVE_ARCHS = ("zamba2-1.2b", "qwen2-moe-a2.7b", "musicgen-medium",
@@ -397,6 +400,18 @@ DRYRUN_DEVICE_BYTES = 79e9        # the card's usable memory: arguments + temp o
 # tests/test_torch_dryrun.py::test_train_4k_temporaries_within_twice_jax
 # compiles its 2-layer cut (5.23 GB) and holds the port's trace to it
 JAX_DRYRUN_FULL_TEMP_BYTES = 5.41e9
+# the multi-pod cell: llama4-scout-17b-a16e train_4k on 2x16x16 cut to 2 of its
+# 48 layers at the full model's grad_accum 16 (a rank holds 8 rows: each
+# micro-batch's 16 rows sit on 16 of the 32 dp ranks); the cut alone would get
+# grad_accum 4 from pick_grad_accum
+DRYRUN_MULTI_POD = ("llama4-scout-17b-a16e", "train_4k", 2, 16)
+# JAX's per-device FLOPs (hlo_analysis), temp_size_in_bytes and
+# argument_size_in_bytes of that cut, compiled on a CPU by the JAX package's
+# dry-run code (PYTHONPATH=src python tests/jax_dryrun_cell.py
+# llama4-scout-17b-a16e train_4k --multi-pod --layers 2 --grad-accum 16)
+JAX_DRYRUN_MULTI_POD_FLOPS = 4.635611889664e13
+JAX_DRYRUN_MULTI_POD_TEMP_BYTES = 7148397120
+JAX_DRYRUN_MULTI_POD_ARGUMENT_BYTES = 304205828
 ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_MORE = 10, 5, 2
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
@@ -1363,11 +1378,12 @@ def init_train_state(model):
 
 def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
           resume_after: Optional[int] = None, ckpt_dir=None, rc=None,
-          lr: float = 3e-4, mesh=None) -> dict:
+          lr: float = 3e-4, mesh=None, grad_accum: int = 1) -> dict:
     """``steps`` AdamW steps on ``synthetic_data`` batches through
     ``runtime.train`` from ``init_train_state``, under ``rc``
     (``train_rc(device)`` when None), at peak learning rate ``lr`` (2
-    warmup steps, then the cosine to ``steps``). Given a ``mesh``, the
+    warmup steps, then the cosine to ``steps``), each batch cut into
+    ``grad_accum`` micro-batches. Given a ``mesh``, the
     step is the mesh path's: the state is distributed into its shardings
     and each batch placed with ``shard_batch``.
 
@@ -1387,7 +1403,8 @@ def train(cfg, *, device: str, batch: int, seq_len: int, steps: int,
     from repro_torch.tree import tree_map
 
     rc = rc or train_rc(device)
-    trc = TrainRunConfig(opt=OptConfig(lr=lr, warmup_steps=2, total_steps=steps))
+    trc = TrainRunConfig(opt=OptConfig(lr=lr, warmup_steps=2, total_steps=steps),
+                         grad_accum=grad_accum)
     step, state_meta, _, st_sh, b_sh, model = build_train_step(cfg, mesh, B=batch,
                                                                S=seq_len, rc=rc, trc=trc)
     state = init_train_state(model)
@@ -2045,13 +2062,17 @@ def dry_run_cells() -> list:
     """Phase 11: ``python -m repro_torch.launch.dryrun`` in a subprocess on
     the ``fake`` backend (256 ranks, meta tensors, nothing launched):
     ``DRYRUN_FULL`` at full depth, then ``DRYRUN_SEGMENT_SHAPE`` of each of
-    ``DRYRUN_SEGMENT_ARCHS`` cut to one segment. Prints each cell's
-    per-device numbers; an erring cell fails the run."""
+    ``DRYRUN_SEGMENT_ARCHS`` cut to one segment, then ``DRYRUN_MULTI_POD``
+    on 512 ranks, held to JAX's FLOPs and temp of the same cut. Prints each
+    cell's per-device numbers; an erring cell fails the run."""
     cells = []
+    arch, shape, layers, accum = DRYRUN_MULTI_POD
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
         for args in (["--arch", DRYRUN_FULL[0], "--shape", DRYRUN_FULL[1]],
                      ["--arch", ",".join(DRYRUN_SEGMENT_ARCHS), "--shape",
-                      DRYRUN_SEGMENT_SHAPE, "--segment"]):
+                      DRYRUN_SEGMENT_SHAPE, "--segment"],
+                     ["--arch", arch, "--shape", shape, "--mesh", "multi", "--layers",
+                      str(layers), "--grad-accum", str(accum)]):
             t0 = time.perf_counter()
             run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
                                   "--out", out], capture_output=True, text=True,
@@ -2075,7 +2096,7 @@ def dry_run_cells() -> list:
                   f"collective {rf['collective_s'] * 1e3:.3f} ms, dominant {rf['dominant']}; "
                   f"useful_flops_ratio {c['useful_flops_ratio']:.3f}", flush=True)
             cells.append(c)
-    _check(len(cells) == 1 + len(DRYRUN_SEGMENT_ARCHS), f"{len(cells)} dry-run cells")
+    _check(len(cells) == 2 + len(DRYRUN_SEGMENT_ARCHS), f"{len(cells)} dry-run cells")
     full = next(c for c in cells if (c["arch"], c["shape"]) == DRYRUN_FULL)
     ma = full["memory_analysis"]
     print(f"[11] {DRYRUN_FULL[0]} x {DRYRUN_FULL[1]} at full depth, a device: temp "
@@ -2088,6 +2109,22 @@ def dry_run_cells() -> list:
               for h in ma["peak_holders"][:3]), flush=True)
     _check(ma["peak_bytes_per_device"] <= DRYRUN_DEVICE_BYTES,
            f"{DRYRUN_FULL}: {ma['peak_bytes_per_device']} B a device")
+    pod = next(c for c in cells if c["mesh"] == "pod2x16x16")
+    flops, ma = pod["trace_per_device"]["flops"], pod["memory_analysis"]
+    print(f"[11] {arch} x {shape} on pod2x16x16 cut to {layers} layers at grad_accum "
+          f"{accum}, a device: FLOPs {flops:.4e} (JAX's hlo_analysis of the same cut, "
+          f"compiled on a CPU: {JAX_DRYRUN_MULTI_POD_FLOPS:.4e}; "
+          f"{flops / JAX_DRYRUN_MULTI_POD_FLOPS:.3f}x), temp {ma['temp_bytes'] / 1e9:.3f} GB "
+          f"(JAX's {JAX_DRYRUN_MULTI_POD_TEMP_BYTES / 1e9:.3f} GB; "
+          f"{ma['temp_bytes'] / JAX_DRYRUN_MULTI_POD_TEMP_BYTES:.3f}x), arguments "
+          f"{ma['argument_bytes']} B (JAX's {JAX_DRYRUN_MULTI_POD_ARGUMENT_BYTES} B)",
+          flush=True)
+    _check(flops <= JAX_DRYRUN_MULTI_POD_FLOPS,
+           f"{DRYRUN_MULTI_POD}: {flops:.4e} FLOPs a device, above JAX's")
+    _check(ma["temp_bytes"] <= 2 * JAX_DRYRUN_MULTI_POD_TEMP_BYTES,
+           f"{DRYRUN_MULTI_POD}: temp {ma['temp_bytes']} B, above twice JAX's")
+    _check(ma["argument_bytes"] == JAX_DRYRUN_MULTI_POD_ARGUMENT_BYTES,
+           f"{DRYRUN_MULTI_POD}: arguments {ma['argument_bytes']} B, not JAX's")
     return cells
 
 
@@ -2158,7 +2195,9 @@ def mesh_paths(cfg, trained: dict, served_tokens: dict, serve_ms: dict,
     ``MESH_SERVE_ARCHS`` served against [3]'s tokens (``served_tokens``;
     [3]'s times ``serve_ms`` printed beside),
     (g) zamba2-1.2b's train steps against [7]'s losses (``hybrid_losses``,
-    under ``remat_rc``) and K2 on a model=4 rank's local heads. Returns
+    under ``remat_rc``) and K2 on a model=4 rank's local heads, (h)
+    qwen2-0.5b's steps at grad_accum ``MESH_ACCUM`` against the same steps
+    without a mesh (bit-equal: the micro-batches are one process's). Returns
     the mesh path's launch counts and numbers."""
     import torch
     import torch.distributed as dist
@@ -2310,10 +2349,34 @@ def mesh_paths(cfg, trained: dict, served_tokens: dict, serve_ms: dict,
     launches_by_arch[HYBRID_ARCH]["train_per_step"] = per_step
     del tr
     torch.cuda.empty_cache()
+    t_phase = _phase_done(10, t_phase, "(g)")
+
+    # (h): qwen2-0.5b at grad_accum 2, the mesh step against the no-mesh one
+    kw = dict(device="cuda", batch=TRAIN_BATCH, seq_len=TRAIN_LEN, steps=MESH_ACCUM_STEPS,
+              grad_accum=MESH_ACCUM)
+    plain = [m["loss"] for m in train(cfg, **kw)["metrics"]]
+    torch.cuda.empty_cache()
+    acc = train(cfg, mesh=mesh, **kw)
+    losses = [m["loss"] for m in acc["metrics"]]
+    per_step = {k: MESH_ACCUM * n
+                for k, n in expected_train_launches(cfg, train_rc("cuda")).items()}
+    print(f"[10] (h) {ARCH} on the (1, 1) mesh at grad_accum {MESH_ACCUM}: "
+          f"{MESH_ACCUM_STEPS} steps of {TRAIN_BATCH} x {TRAIN_LEN} tokens, each cut into "
+          f"{MESH_ACCUM} micro-batches: losses {losses} (no mesh, the same steps: {plain}; "
+          f"bit-equal {losses == plain}); median step {acc['median_step_ms']:.3f} ms; K1 "
+          f"launches a step {[la['attention'] for la in acc['launches_per_step']]} "
+          f"(expected {per_step['attention']})", flush=True)
+    _check(losses == plain, f"mesh grad_accum {MESH_ACCUM} losses {losses} vs {plain}")
+    _check(all(la == per_step for la in acc["launches_per_step"]),
+           f"mesh grad_accum steps launched {acc['launches_per_step']}, not {per_step}")
+    mesh_train[f"{ARCH}, grad_accum {MESH_ACCUM}"] = {
+        "median_step_ms": acc["median_step_ms"], "losses_bit_equal": losses == plain}
+    del acc
+    torch.cuda.empty_cache()
     dist.destroy_process_group()
     k2_local = check_k2_local_heads(torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.empty_cache()
-    _phase_done(10, t_phase, "(g)")
+    _phase_done(10, t_phase, "(h), K2 on local heads")
     launches["by_arch"] = launches_by_arch
     return {"train": mesh_train, "serve": mesh_serve, "launches": launches,
             "k2_local_heads": k2_local,

@@ -83,8 +83,8 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"K1 shapes disagree: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if min(B, S, H, k.shape[1], k.shape[2]) == 0:
-        raise ValueError(f"K1 takes non-empty tensors; q {tuple(q.shape)}, "
+    if min(S, H, k.shape[1], k.shape[2]) == 0:   # an empty batch launches nothing
+        raise ValueError(f"K1 takes non-empty sequences and heads; q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
     if H % k.shape[2]:
         raise ValueError(f"K1 takes a number of KV heads that divides H; "
@@ -99,13 +99,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Launches K1 on the current stream and returns without synchronising.
     Raises if the inputs are not ones the kernel takes (a causal block at
     an offset past the last key among them, ``ref.check_q_offset``), if
-    the kernel cannot be built, or if the launch is refused.
+    the kernel cannot be built, or if the launch is refused. An empty q
+    (a rank that holds no row of a micro-batch) launches nothing.
     """
     _check_inputs(q, k, v)
     ref.check_q_offset(q.shape[1], k.shape[1], q_offset, causal)
+    out = torch.empty_like(q)
+    if not out.numel():
+        return out
     fn, error_string = _launcher()
     B, S, H, hd = q.shape
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -11,7 +11,8 @@ in the kernel's place. There is no fallback from one to the other.
 Each kernel's entry here carries ``launches``, a plain int that counts
 the kernel launches made through it, so a run can show that its main
 path went through the kernel. A meta call launches nothing and is not
-counted.
+counted, nor is an empty batch's (a rank that holds no row of a
+micro-batch), for which the kernel is not launched.
 
 A CUDA attention call always goes through ``FlashAttentionFn`` (K1
 forward, tensor-op backward) and a CUDA SSD scan through ``SSDScanFn``
@@ -44,7 +45,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if q.device.type in ("cuda", "meta"):
         out = fa.FlashAttentionFn.apply(q, k, v, causal, q_offset)
-        attention.launches += q.device.type == "cuda"
+        attention.launches += q.device.type == "cuda" and q.numel() > 0
         return out
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset)
@@ -66,7 +67,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     """
     if x.device.type in ("cuda", "meta"):
         out = ssd_mod.SSDScanFn.apply(x, dt, A, B, C, chunk, init_state)
-        ssd.launches += x.device.type == "cuda"
+        ssd.launches += x.device.type == "cuda" and x.shape[0] > 0
         return out
     if x.device.type == "cpu":
         from repro_torch.models.ssm import ssd_chunked   # models.ssm imports this module

@@ -95,8 +95,8 @@ def _check_shapes(x, dt, A, B, C, chunk, init_state):
     if x.dim() != 4:
         raise ValueError(f"K2 takes x of shape (b, s, h, p); got {tuple(x.shape)}")
     b, s, h, p = x.shape
-    if min(b, s, h) == 0:
-        raise ValueError(f"K2 takes non-empty tensors; x {tuple(x.shape)}")
+    if min(s, h) == 0:                            # an empty batch launches nothing
+        raise ValueError(f"K2 takes non-empty sequences and heads; x {tuple(x.shape)}")
     if p not in HEAD_DIMS:
         raise ValueError(f"K2 takes head_dim p in {HEAD_DIMS}; got {p}")
     if B.dim() != 3:
@@ -132,14 +132,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     Returns (y (b, s, h, p) in x's dtype, final_state (b, h, p, n) f32).
     Launches K2 on the current stream and returns without synchronising.
     Raises if the inputs are not ones the kernel takes, if the kernel
-    cannot be built, or if the launch is refused.
+    cannot be built, or if the launch is refused. An empty batch (a rank
+    that holds no row of a micro-batch) launches nothing.
     """
     _check_inputs(x, dt, A, B, C, chunk, init_state)
-    fn, error_string = _launcher()
     b, s, h, p = x.shape
     n = B.shape[-1]
     y = torch.empty_like(x)
     final_state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if not b:
+        return y, final_state
+    fn, error_string = _launcher()
     cb = (torch.empty((b, s // chunk, chunk, chunk), dtype=torch.float32, device=x.device)
           if kernel_path(x.dtype, B.dtype) == "scalar" else None)
     with torch.cuda.device(x.device):

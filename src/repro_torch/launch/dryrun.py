@@ -22,6 +22,13 @@ are arithmetic on the H100's data-sheet peaks below, not timings.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh both
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama4-scout-17b-a16e \
+      --shape train_4k --mesh multi --layers 2 --grad-accum 16
+
+``--layers`` cuts each arch's depth, which changes ``pick_grad_accum``'s
+count (it reads the parameters of the config it is given): a cut cell
+that stands for the full model passes the full model's count with
+``--grad-accum``. Such a cell's artifact is tagged (``L2_ga16``).
 """
 from __future__ import annotations
 
@@ -182,11 +189,15 @@ def ideal_step_seconds(cfg, shape, n_chips: int, kwargs) -> float:
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
              mesh=None, verbose: bool = True, policy=None, rc=None,
-             trc=None, tag: str = "", segment: bool = False) -> dict:
-    """Trace one cell; ``segment`` cuts the arch to ``one_segment``."""
+             trc=None, tag: str = "", segment: bool = False,
+             layers: Optional[int] = None) -> dict:
+    """Trace one cell; ``segment`` cuts the arch to ``one_segment``,
+    ``layers`` to that many layers."""
     cfg = get_config(arch)
     if segment:
         cfg = one_segment(cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = SHAPES[shape_name]
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     cell_id = f"{arch}__{shape_name}__{mesh_name}" + (f"__{tag}" if tag else "")
@@ -323,6 +334,10 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--skip-cached", action="store_true")
     ap.add_argument("--segment", action="store_true",
                     help="cut each arch to one segment (one_segment)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each arch to this many layers")
+    ap.add_argument("--grad-accum", type=int, default=None,
+                    help="the train cells' micro-batch count (default pick_grad_accum)")
     ap.add_argument("--table", action="store_true",
                     help="print the markdown table of the cells in --out and exit")
     args = ap.parse_args(argv)
@@ -335,6 +350,10 @@ def main(argv: Optional[list] = None) -> int:
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     out_dir = Path(args.out)
+    trc = (None if args.grad_accum is None
+           else TrainRunConfig(opt=OptConfig(), grad_accum=args.grad_accum))
+    tag = "_".join(t for t in (f"L{args.layers}" if args.layers else "",
+                               f"ga{args.grad_accum}" if args.grad_accum else "") if t)
 
     summary = []
     for multi in meshes:
@@ -343,7 +362,8 @@ def main(argv: Optional[list] = None) -> int:
         for arch in archs:
             for shape in shapes:
                 mesh_name = "pod2x16x16" if multi else "pod16x16"
-                cached = out_dir / f"{arch}__{shape}__{mesh_name}.json"
+                cached = out_dir / (f"{arch}__{shape}__{mesh_name}"
+                                    + (f"__{tag}" if tag else "") + ".json")
                 if args.skip_cached and cached.exists():
                     prev = json.loads(cached.read_text())
                     if prev.get("status") in ("ok", "skipped"):
@@ -351,7 +371,8 @@ def main(argv: Optional[list] = None) -> int:
                         summary.append(prev)
                         continue
                 summary.append(run_cell(arch, shape, multi, out_dir, mesh=mesh,
-                                        segment=args.segment))
+                                        segment=args.segment, layers=args.layers,
+                                        trc=trc, tag=tag))
         dist.destroy_process_group()
 
     ok = sum(1 for r in summary if r["status"] == "ok")

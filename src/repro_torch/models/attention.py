@@ -37,9 +37,9 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import repeat_kv
-from repro_torch.models.layers import RunConfig, apply_rope, dense_init, linear
-from repro_torch.parallel.mesh import (grad_placements, local_offset, merge_heads,
-                                       moved_placements, split_heads)
+from repro_torch.models.layers import RunConfig, apply_rope, dense_init, linear, matmul
+from repro_torch.parallel.mesh import (from_local, grad_placements, local_offset,
+                                       merge_heads, moved_placements, split_heads)
 
 NEG_INF = -1e30
 
@@ -232,7 +232,7 @@ def _local_attention(q, k, v, *, causal: bool):
         h0 = local_offset(q, 2)
         kl, vl = (repeat_kv(t, H)[:, :, h0:h0 + Hl] for t in (kl, vl))
     out = ops.attention(ql, kl, vl, causal=causal, q_offset=local_offset(q, 1))
-    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
+    return from_local(out, q.device_mesh, q.placements, q.shape[:3] + v.shape[3:])
 
 
 def apply_attention(
@@ -264,7 +264,7 @@ def apply_attention(
     cross = is_cross or kv_x is not None
     src = kv_x if cross else x
 
-    q = x @ params["wq"]
+    q = matmul(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
     q = split_heads(q, H, hd)
@@ -273,8 +273,8 @@ def apply_attention(
         # the cross k/v were computed at prefill and live in the cache
         k, v = cache
     else:
-        k = src @ params["wk"]
-        v = src @ params["wv"]
+        k = matmul(src, params["wk"])
+        v = matmul(src, params["wv"])
         if "bk" in params:
             k, v = k + params["bk"], v + params["bv"]
         k = split_heads(k, K, hd)

@@ -9,9 +9,11 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.parallel.mesh import local_offset, reduce_partial, replicate_like, unshard_dim
+from repro_torch.parallel.mesh import (from_local, grad_placements, local_offset,
+                                       reduce_partial, replicate_like, shard_count,
+                                       unshard_dim)
 
 
 def _no_constrain(x, logical_axes):
@@ -128,10 +130,55 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):
     for d in range(1, x.dim() - 1):
         x = unshard_dim(x, d)
     x = reduce_partial(x)
-    y = x @ w
+    y = matmul(x, w)
     if b is not None:
         y = y + b
     return y
+
+
+def uneven_rows(x) -> bool:
+    """Whether the DTensor ``x``'s rows (dim 0) are cut unevenly over its
+    ranks: a micro-batch of fewer rows than its dp ranks
+    (``runtime.train.micro_batch``), some ranks holding one row, some none;
+    or one row sharded (over mesh dims of size 1), which DTensor cannot
+    flatten either."""
+    n = shard_count(x, 0)
+    return n > 1 and x.shape[0] % n != 0 or (isinstance(x, DTensor) and x.shape[0] == 1
+                                             and Shard(0) in x.placements)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for an activation ``x`` (..., D) and a weight ``w`` (D, F).
+
+    Where ``x``'s rows are cut unevenly (``uneven_rows``) DTensor cannot
+    run the product, which flattens the leading dims, so each rank
+    multiplies its own shards, placed on each mesh dim as DTensor places
+    an even product: where ``x``'s rows are sharded, ``w`` is gathered
+    (its FSDP dim); where ``x``'s D is sharded, or ``x`` is whole and
+    ``w``'s D is sharded, each rank takes its slice of D and the product
+    is summed at once (an all-reduce: DTensor gathers rows cut unevenly
+    where a later op meets a Partial operand); where only ``w``'s F is
+    sharded, so is the product's. Every other product is DTensor's (or
+    plain).
+    """
+    if not uneven_rows(x):
+        return x @ w
+    mesh, last = x.device_mesh, x.ndim - 1
+    if any(isinstance(p, Shard) and 0 < p.dim < last for p in x.placements):
+        raise ValueError(f"rows cut unevenly and an inner dim sharded: {x.placements}")
+    rule = []                       # (x's, w's, the product's) placement a mesh dim
+    for px, pw in zip(x.placements, w.placements):
+        if px == Shard(0):
+            rule.append((px, Replicate(), px))
+        elif px == Shard(last) or pw == Shard(0):
+            rule.append((Shard(last), Shard(0), Partial()))
+        else:
+            rule.append((px, pw, Shard(last) if pw == Shard(1) else px))
+    x_pl, w_pl, out_pl = zip(*rule)
+    x, w = x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl)
+    y = (x.to_local(grad_placements=grad_placements(x, w))
+         @ w.to_local(grad_placements=grad_placements(w, x)))
+    return reduce_partial(from_local(y, mesh, out_pl, x.shape[:-1] + w.shape[1:]))
 
 
 def swiglu(x, w1, w3, w2):
@@ -174,6 +221,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     head_dim = x.shape[-1]
     freqs = rope_freqs(head_dim, theta, device=x.device)        # (hd/2,)
     angles = positions[..., None].float() * freqs               # (..., S, hd/2)
+    if angles.ndim == x.ndim - 1 and angles.shape[0] == 1:
+        # one row of positions for every row of x: broadcast from the left, so
+        # that a DTensor x of one row cut over several ranks is not gathered
+        angles = angles[0]
     cos = replicate_like(torch.cos(angles)[..., None, :], x)    # (..., S, 1, hd/2)
     sin = replicate_like(torch.sin(angles)[..., None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -286,4 +337,4 @@ def _sharded_cross_entropy(logits: DTensor, labels, vocab_size: int) -> DTensor:
     labels = labels.redistribute(mesh, rows_pl).to_local()
     loss = _VocabShardedCE.apply(logits.to_local(), labels, local_offset(logits, -1),
                                  vocab_size, [mesh.get_group(i) for i in dims])
-    return DTensor.from_local(loss, mesh, rows_pl, run_check=False)
+    return from_local(loss, mesh, rows_pl, logits.shape[:-1])

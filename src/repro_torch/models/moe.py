@@ -41,9 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.models.layers import RunConfig, apply_mlp, dense_init, init_mlp
-from repro_torch.parallel.mesh import (grad_placements, local_offset, reduce_partial,
-                                       unshard_dim)
+from repro_torch.models.layers import (RunConfig, apply_mlp, dense_init, init_mlp,
+                                       uneven_rows)
+from repro_torch.parallel.mesh import (from_local, grad_placements, local_offset,
+                                       reduce_partial, unshard_dim)
 
 
 def init_moe(gen, cfg, dtype, device):
@@ -200,9 +201,10 @@ def _apply_moe_local(params, x: DTensor, cfg, rc: RunConfig, group: int):
     dispatch, combine, probs = _route(logits.float(), cfg, group)
     e0, El = local_offset(ws[0], 0), wl[0].shape[0]
     y = _experts(xg, dispatch[:, :, e0:e0 + El], combine[:, :, e0:e0 + El], *wl)
-    y = DTensor.from_local(y.reshape(Bl, S, D), mesh,
-                           [Partial() if e else p for p, e in zip(x.placements, exp)],
-                           run_check=False)
+    y = from_local(y.reshape(Bl, S, D), mesh,
+                   [Partial() if e else p for p, e in zip(x.placements, exp)], (B, S, D))
+    if uneven_rows(x):       # DTensor would gather rows cut unevenly beside a Partial
+        y = reduce_partial(y)
 
     repeats = 1
     for i, (t, e) in enumerate(zip(tok, exp)):

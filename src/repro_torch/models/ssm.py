@@ -40,8 +40,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops, ssd_scan
 from repro_torch.models.layers import RunConfig, dense_init, linear, rms_norm
-from repro_torch.parallel.mesh import (grad_placements, local_offset, merge_heads,
-                                       moved_placements, split_heads)
+from repro_torch.parallel.mesh import (from_local, grad_placements, local_offset,
+                                       merge_heads, moved_placements, split_heads)
 
 
 class SSMState(NamedTuple):
@@ -112,7 +112,8 @@ def _zeros_like_rows(x, rows: int):
     local = x.to_local()                    # the projections are never sequence-sharded
     zeros = torch.zeros((local.shape[0], rows) + tuple(local.shape[2:]), dtype=x.dtype,
                         device=local.device)
-    return DTensor.from_local(zeros, x.device_mesh, x.placements, run_check=False)
+    return from_local(zeros, x.device_mesh, x.placements,
+                      (x.shape[0], rows) + tuple(x.shape[2:]))
 
 
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
@@ -218,8 +219,9 @@ def _local_ssd(xh, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     init = (None if init_state is None
             else init_state.redistribute(mesh, st_pl).to_local())
     y, state = ops.ssd(xl, dtl, Al, Bl, Cl, chunk=chunk, init_state=init)
-    return (DTensor.from_local(y, mesh, pl, run_check=False),
-            DTensor.from_local(state, mesh, st_pl, run_check=False))
+    return (from_local(y, mesh, pl, xh.shape),
+            from_local(state, mesh, st_pl, (xh.shape[0], xh.shape[2], xh.shape[3],
+                                            Bm.shape[-1])))
 
 
 def _local_decode_step(state, x, dt, A, Bv, Cv):

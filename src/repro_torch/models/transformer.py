@@ -42,7 +42,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init, init_mlp,
-                                       linear, rms_norm, softmax_cross_entropy)
+                                       linear, rms_norm, softmax_cross_entropy,
+                                       uneven_rows)
+from repro_torch.parallel.mesh import from_local, unshard_dim
 
 # SSM / router leaves that stay f32 through compute-dtype casting
 _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "router", "gate")
@@ -275,13 +277,41 @@ def _maybe_remat(fn, rc: RunConfig):
     return remat
 
 
-def _logits(params, h, cfg):
+def _logits(params, h, cfg, rc: Optional[RunConfig] = None):
+    """The head's product on the final-normed ``h``, softcapped where the
+    config says, and given ``rc`` constrained to rows on dp, vocab on tp.
+
+    On DTensors the product is placed here. Where h's rows and the head's
+    D (its FSDP dim) share a mesh dim, the head's D is gathered, so each
+    rank multiplies its own rows by its vocab shard: left to itself,
+    DTensor may gather the rows instead where a rank holds few (2 a rank:
+    the micro-batch's whole logits on every rank). Where h's rows are cut
+    unevenly (a micro-batch of fewer rows than dp ranks, some ranks
+    holding none), every rank takes all the rows against its share of
+    the vocab, cut over the rows' mesh dims and the head's own: the
+    product and the loss are then shared by all ranks, not left to the
+    ranks that hold a row; those logits stay so, unconstrained. Either
+    way the head's gradient is reduced into its placements.
+    """
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
+    spread = uneven_rows(h) and isinstance(head, DTensor)
+    if spread:
+        dp = [i for i, p in enumerate(h.placements) if p == Shard(0)]
+        h = unshard_dim(h, 0)
+        head = head.redistribute(head.device_mesh, [
+            Shard(0) if i in dp or p == Shard(0) else Replicate()
+            for i, p in enumerate(head.placements)])
+    elif isinstance(h, DTensor) and isinstance(head, DTensor) and any(
+            hp == Shard(0) and wp == Shard(1)
+            for hp, wp in zip(h.placements, head.placements)):
+        head = unshard_dim(head, 1)
     logits = linear(h, head.T)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    if rc is None or spread:
+        return logits
+    return rc.constrain(logits, ("dp", None, "tp"))
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +328,7 @@ def _lookup(table, tokens):
     whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
     grad = [Partial() if isinstance(p, Shard) else Replicate() for p in tokens.placements]
     rows = whole.to_local(grad_placements=grad)[tokens.to_local()]
-    return DTensor.from_local(rows, mesh, tokens.placements, run_check=False)
+    return from_local(rows, mesh, tokens.placements, tuple(tokens.shape) + (table.shape[1],))
 
 
 def _embed(params, cfg, rc: RunConfig, tokens, embeds):
@@ -345,7 +375,7 @@ def forward(params, cfg, rc: RunConfig, *, tokens: Optional[torch.Tensor] = None
         cache["pos"] = S
     if last_only:
         h = h[:, -1:, :]
-    return rc.constrain(_logits(params, h, cfg), ("dp", None, "tp")), aux, cache
+    return _logits(params, h, cfg, rc), aux, cache
 
 
 def _attn_forward(params, cfg, rc, h, positions, img, return_cache):

@@ -24,6 +24,7 @@ The spec functions read only the mesh's axis sizes, so they take a
 """
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -140,6 +141,20 @@ def local_offset(x: DTensor, dim: int) -> int:
     return offset
 
 
+def from_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """``DTensor.from_local`` of this rank's shard of a tensor of global
+    ``shape``. Left to itself DTensor reckons the global shape as if every
+    rank's shard were as large as this one's, which an uneven cut breaks:
+    a micro-batch of fewer rows than its ranks leaves some ranks one row
+    and the rest none (``runtime.train.micro_batch``)."""
+    shape = torch.Size(shape)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * max(shape[d + 1], 1)
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
 def shard_count(x, dim: int) -> int:
     """Into how many shards the DTensor ``x`` cuts dim ``dim`` (1 for a plain tensor)."""
     if not isinstance(x, DTensor):
@@ -223,21 +238,34 @@ def merge_heads(x):
     for d in range(3, x.ndim):
         x = unshard_dim(x, d)
     local = x.to_local()
-    return DTensor.from_local(local.reshape(local.shape[:2] + (-1,)), x.device_mesh,
-                              x.placements, run_check=False)
+    return from_local(local.reshape(local.shape[:2] + (math.prod(local.shape[2:]),)),
+                      x.device_mesh, x.placements, x.shape[:2] + (math.prod(x.shape[2:]),))
 
 
 def make_constrain(mesh, rules=None):
     """RunConfig.constrain hook: constrain(x, logical_axes) -> x.
 
     Without a mesh, the identity. Otherwise ``x`` (a DTensor on ``mesh``)
-    is redistributed into the placements of its resolved spec.
+    is redistributed into the placements of its resolved spec, except
+    that a dim ``x`` already shards over mesh axes its logical axis names
+    stays sharded there where the spec drops them for want of
+    divisibility: a micro-batch of 16 rows cut over pod x data = 32 ranks
+    (``runtime.train.micro_batch``) keeps one row a rank and is not
+    gathered onto ``pod`` alone.
     """
+    names = list(mesh_axes(mesh)) if mesh is not None else []
+    rules = rules or DEFAULT_RULES
+
     def constrain(x, logical_axes):
         if mesh is None:
             return x
         spec = resolve_spec(mesh, logical_axes, x.shape, rules)
-        return x.redistribute(mesh, to_placements(mesh, spec, x.ndim))
+        placements = list(to_placements(mesh, spec, x.ndim))
+        for i, p in enumerate(x.placements):
+            if (isinstance(p, Shard) and isinstance(placements[i], Replicate)
+                    and names[i] in rules.get(logical_axes[p.dim], ())):
+                placements[i] = p
+        return x.redistribute(mesh, placements)
     return constrain
 
 

@@ -20,12 +20,13 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.models import Model, RunConfig, build
 from repro_torch.optim.adamw import OptConfig, TrainState, apply_updates, init_state
 from repro_torch.parallel import compression as comp_lib
-from repro_torch.parallel.mesh import P, unshard_dim
+from repro_torch.parallel.mesh import P, from_local, local_offset
 from repro_torch.parallel.sharding import (ShardingPolicy, batch_specs, is_sharding,
                                            param_specs, place, to_named, whole)
 from repro_torch.runtime.serve import mesh_runconfig
@@ -69,22 +70,76 @@ def value_and_grad(loss_fn, params, batch) -> Tuple[torch.Tensor, Dict]:
     return loss.detach(), tree_unflatten(params, grads)
 
 
-def _micro(x: torch.Tensor, a: int, i: int) -> torch.Tensor:
-    """Micro-batch ``i`` of ``a`` along dim 0. A DTensor batch is cut on
-    each rank's own rows (every micro-batch keeps the batch's placements),
-    so no rank gathers another's rows; the micro-batches then hold other
-    rows than the unsharded cut, but the mean over all of them is the same.
-    Where a rank holds fewer rows than ``a`` (or a number ``a`` does not
-    divide), the batch is gathered and cut as one process cuts it, and the
-    model places the micro-batch (``rc.constrain``) on the dp axes its rows
-    divide."""
-    if isinstance(x, DTensor):
-        local = x.to_local()
-        if local.shape[0] % a == 0:
-            part = local.reshape((a, local.shape[0] // a) + tuple(local.shape[1:]))[i]
-            return DTensor.from_local(part, x.device_mesh, x.placements, run_check=False)
-        x = unshard_dim(x, 0)
-    return x.reshape((a, x.shape[0] // a) + tuple(x.shape[1:]))[i]
+def _coords(row: int, size: int, sizes) -> tuple:
+    """The coordinates, along mesh dims of ``sizes`` (the first the major),
+    of the rank that holds ``row`` of ``size`` rows cut as DTensor's
+    ``Shard`` cuts them: ``torch.chunk``, mesh dim by mesh dim."""
+    out = []
+    for n in sizes:
+        piece = -(-size // n)
+        c = row // piece
+        out.append(c)
+        row -= c * piece
+        size = min(piece, size - c * piece)
+    return tuple(out)
+
+
+def _take(x: torch.Tensor, idx: list) -> torch.Tensor:
+    """Rows ``idx`` of ``x``: a view where they run on, else a gather."""
+    if not idx:
+        return x[:0]
+    if idx == list(range(idx[0], idx[0] + len(idx))):
+        return x[idx[0]:idx[0] + len(idx)]
+    return x.index_select(0, torch.tensor(idx, dtype=torch.long, device=x.device))
+
+
+def micro_batch(x: torch.Tensor, a: int, i: int) -> torch.Tensor:
+    """Micro-batch ``i`` of ``a`` along dim 0: the rows ``[i·m, (i+1)·m)``,
+    ``m = B / a``, as one process (and the JAX package's ``split``) cuts them.
+
+    A DTensor batch comes back ``Shard(0)`` over the mesh dims that shard
+    the batch's rows (``pod``, ``data``), cut as DTensor cuts: where ``m``
+    is smaller than those ranks, each row sits on one rank and the ranks
+    past the last row hold none. Only the rows that change rank move: one
+    ``all_to_all_single`` over each such mesh dim in turn (a row first
+    goes to its new coordinate on the first, then on the next), every
+    rank reckoning from the two cuts alone what it sends and receives. No
+    rank gathers the batch.
+    """
+    m = x.shape[0] // a
+    if not isinstance(x, DTensor):
+        return x.reshape((a, m) + tuple(x.shape[1:]))[i]
+    mesh = x.device_mesh
+    dims = [d for d, p in enumerate(x.placements) if p == Shard(0)]
+    if any(isinstance(p, Partial) or (isinstance(p, Shard) and p.dim)
+           for p in x.placements):
+        raise ValueError(f"a batch leaf is sharded on its rows alone, not {x.placements}")
+    sizes = [mesh.size(d) for d in dims]
+    me = tuple(mesh.get_local_rank(d) for d in dims)
+    src = [_coords(i * m + r, x.shape[0], sizes) for r in range(m)]
+    dst = [_coords(r, m, sizes) for r in range(m)]
+    held = [r for r in range(m) if src[r] == me]
+    buf = _take(x.to_local(), [i * m + r - local_offset(x, 0) for r in held])
+    for j, d in enumerate(dims):
+        if all(s[j] == t[j] for s, t in zip(src, dst)):
+            continue                              # no row changes rank along d
+        send = [[r for r in held if dst[r][j] == p] for p in range(sizes[j])]
+        recv = []
+        for p in range(sizes[j]):
+            peer = me[:j] + (p,) + me[j + 1:]
+            recv.append([r for r in range(m) if src[r][j:] == peer[j:]
+                         and dst[r][:j + 1] == me[:j + 1]])
+        pos = {r: k for k, r in enumerate(held)}
+        buf = funcol.all_to_all_single(
+            _take(buf, [pos[r] for part in send for r in part]),
+            [len(part) for part in recv], [len(part) for part in send], (mesh, d))
+        if isinstance(buf, funcol.AsyncCollectiveTensor):
+            buf = buf.wait()
+        held = [r for part in recv for r in part]
+    pos = {r: k for k, r in enumerate(held)}
+    buf = _take(buf, [pos[r] for r in sorted(held)])
+    placements = [Shard(0) if d in dims else p for d, p in enumerate(x.placements)]
+    return from_local(buf, mesh, placements, (m,) + tuple(x.shape[1:]))
 
 
 def _like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -97,10 +152,11 @@ def make_train_step(model: Model, trc: TrainRunConfig):
     """``train_step(state, batch) -> (new_state, {"loss", "lr", "grad_norm"})``.
 
     With ``grad_accum = a`` the batch is cut into ``a`` micro-batches
-    along dim 0, their gradients summed in f32 and divided by ``a``, the
-    loss averaged. Every metric is a device tensor (no host sync). On
-    DTensors, each gradient is placed like its param before the int8
-    hook and AdamW, and the metrics are made whole.
+    along dim 0 as one process cuts it (``micro_batch``: on DTensors each
+    spread over the batch's dp ranks), their gradients summed in f32 and
+    divided by ``a``, the loss averaged. Every metric is a device tensor
+    (no host sync). On DTensors, each gradient is placed like its param
+    before the int8 hook and AdamW, and the metrics are made whole.
     """
 
     def train_step(state: TrainState, batch):
@@ -110,7 +166,7 @@ def make_train_step(model: Model, trc: TrainRunConfig):
             lsum = torch.zeros((), dtype=torch.float32, device=state.step.device)
             for i in range(a):
                 loss, g = value_and_grad(model.loss, state.params,
-                                         {k: _micro(v, a, i) for k, v in batch.items()})
+                                         {k: micro_batch(v, a, i) for k, v in batch.items()})
                 g = tree_map(_like_param, g, state.params)
                 gsum = tree_map(lambda s, x: s + x.float(), gsum, g)
                 lsum = lsum + loss

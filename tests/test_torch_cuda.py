@@ -53,7 +53,8 @@ launches); ``FlashAttentionFn``'s gradients at H=16 over K=2 (deepseek-
 67b's group of 8) and H=10 over K=2 (llama4-scout-17b-a16e's group of
 5). The sharded control plane: inline, its pods run on the card; its
 workers forked after this process initialised CUDA cannot, and fail as a
-``ShardFailure`` (the reference forks too).
+``ShardFailure`` (the reference forks too). K1 and K2 on an empty batch
+(a rank holding no row of a micro-batch) launch nothing.
 """
 import dataclasses
 
@@ -344,6 +345,28 @@ def test_k2_bf16_tensor_core_path(card, chunk, p, n):
     assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
     torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(st, st_ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_and_k2_on_an_empty_batch_launch_nothing(card, dtype):
+    """A rank that holds no row of a micro-batch (fewer rows than dp ranks)
+    calls K1 and K2 on an empty batch: empty outputs, no launch counted,
+    and the gradient flows (K1 under autograd) as an empty one."""
+    dt_ = TORCH_DTYPE[dtype]
+    q, k, v = (torch.zeros((0, 64, n, 64), dtype=dt_, device=card, requires_grad=True)
+               for n in (4, 2, 2))
+    launches = ops.attention.launches
+    out = ops.attention(q, k, v, causal=True)
+    out.float().sum().backward()
+    assert out.shape == q.shape and q.grad.shape == q.shape
+    assert ops.attention.launches == launches
+    x, dt, A, B, C, _ = _ssd_inputs(card, 1, 32, 2, 16, 16, dt_, dt_)
+    launches = ops.ssd.launches
+    y, st = ops.ssd(x[:0], dt[:0], A, B[:0], C[:0], chunk=16)
+    torch.cuda.synchronize()
+    assert y.shape == (0, 32, 2, 16) and st.shape == (0, 2, 16, 16)
+    assert ops.ssd.launches == launches
 
 
 @pytest.mark.cuda

@@ -16,7 +16,9 @@ head counts (H=14 over K=2, hd 32) and its vocab cut to 500 (padded to
 S=32. On the (4, 2) mesh the attention shards heads (14 % 2 == 0: each
 rank's 7 q heads read one KV head), on (2, 4) query rows (14 % 4 != 0:
 each rank's 8 rows run at q_offset 0, 8, 16 or 24 against the full
-k/v); a third case takes the (4, 2) step with grad_accum 2. Serving
+k/v); a third case takes the (4, 2) step with grad_accum 2, each
+micro-batch the rows one process's cut gives it, spread over the data
+ranks (``runtime.train.micro_batch``). Serving
 (prefill, then greedy decode against the grown cache) runs on (4, 2), on
 (2, 4) (the cache's head_dim on tp, so decode sums its scores over tp)
 and on a (1, 7) mesh over 7 of the 8 ranks (2 of the 14 heads a rank,
@@ -310,6 +312,10 @@ B, S = a["B"], a["S"]
 loss, grads = jax.jit(jax.value_and_grad(model.loss))(params, batch)
 out["loss"], out["grads"] = float(loss), flat(grads)
 for name, (shape, kw, accum) in a["train"].items():
+    if accum > 1:       # the first micro-batch's, as one process cuts it
+        loss, grads = jax.jit(jax.value_and_grad(model.loss))(
+            params, {k: v[:B // accum] for k, v in batch.items()})
+        out[name + "/micro0"] = {"loss": float(loss), "grads": flat(grads)}
     mesh = mesh_of(shape)
     trc = TrainRunConfig(opt=OptConfig(**a["opt"]), grad_accum=accum)
     step, _, _, st_sh, b_sh, _ = build_train_step(cfg, mesh, B=B, S=S, rc=rc.replace(**kw),
@@ -410,9 +416,9 @@ def world(tmp_path_factory):
         join_world(procs, tmp, deadline, TIMEOUT_S)
     jax_refs = pickle.loads((tmp / "jax_refs.pkl").read_bytes())
     for case in TRAIN_CASES:        # the step's mean gradient is the full batch's
-        jax_refs[case].update(step_grads=jax_refs["grads"], **(
-            {} if case.endswith("_accum") else {"loss": jax_refs["loss"],
-                                                "grads": jax_refs["grads"]}))
+        first = jax_refs.get(case + "/micro0", jax_refs)    # the step's first (micro-)batch
+        jax_refs[case].update(step_grads=jax_refs["grads"], loss=first["loss"],
+                              grads=first["grads"])
     return {"out": torch.load(tmp / "results.pt", weights_only=False),
             "refs": {"port": port, "jax": jax_refs}, "tmp": tmp}
 
@@ -467,16 +473,15 @@ def test_local_shards_equal_jax_addressable_shards(world):
 
 
 def _check_train(got, ref, case):
-    """The loss and gradients are the step's own (its ``value_and_grad``).
-    With grad_accum, each rank cuts its own rows into micro-batches: other
-    micro-batches than one process's or JAX's cut (so their losses and
-    gradients are not compared), the same mean over them (the step's loss,
-    grad norm and params are)."""
-    accum = case.endswith("_accum")
+    """The loss and gradients are those of the step's first (micro-)batch
+    (its first ``value_and_grad``). With grad_accum the mesh step cuts its
+    micro-batches as one process and JAX's ``split`` cut them (the rows
+    ``[0, B / a)`` first), so the first micro-batch's loss and every
+    gradient leaf are compared, and the step's loss, grad norm and params."""
     assert got["attn_shard"] == case.removesuffix("_accum")
-    for key in ("step_loss", "grad_norm") if accum else ("loss", "step_loss", "grad_norm"):
+    for key in ("loss", "step_loss", "grad_norm"):
         assert abs(got[key] - ref[key]) <= 1e-5 * abs(ref[key]), (key, got[key], ref[key])
-    for k, g in ({} if accum else ref["grads"]).items():
+    for k, g in ref["grads"].items():
         g = torch.as_tensor(g)
         scale = float(g.abs().max())
         assert scale > 0, k
@@ -556,7 +561,8 @@ def test_production_meshes_on_the_fake_backend():
 def test_chip_smoke_mesh_helpers_on_a_cpu_world_of_one(tmp_path):
     """chip_smoke.py phase 10's helpers, rehearsed on a gloo world of one rank
     and a (1, 1) mesh at a tiny size: the mesh path's train steps equal the
-    no-mesh ones, its greedy tokens too, and the elastic runner resumes."""
+    no-mesh ones (also at grad_accum 2), its greedy tokens too, and the
+    elastic runner resumes."""
     code = (
         "import dataclasses, torch, torch.distributed as dist\n"
         "import chip_smoke as cs\n"
@@ -568,6 +574,8 @@ def test_chip_smoke_mesh_helpers_on_a_cpu_world_of_one(tmp_path):
         "cfg = dataclasses.replace(get_config('qwen2-0.5b').reduced(), n_layers=1)\n"
         "kw = dict(device='cpu', batch=2, seq_len=16, steps=2)\n"
         "a, b = cs.train(cfg, **kw), cs.train(cfg, mesh=mesh, **kw)\n"
+        "assert [m['loss'] for m in a['metrics']] == [m['loss'] for m in b['metrics']]\n"
+        "a, b = cs.train(cfg, grad_accum=2, **kw), cs.train(cfg, mesh=mesh, grad_accum=2, **kw)\n"
         "assert [m['loss'] for m in a['metrics']] == [m['loss'] for m in b['metrics']]\n"
         "kw = dict(device='cpu', batch=2, prompt_len=8, decode_steps=2)\n"
         "a, b = cs.serve(cfg, **kw), cs.serve(cfg, mesh=mesh, **kw)\n"
@@ -587,5 +595,40 @@ def test_chip_smoke_mesh_helpers_on_a_cpu_world_of_one(tmp_path):
     assert "MESH_HELPERS_OK" in out.stdout
 
 
+def card_check(tmp: Path) -> None:
+    """The world against the port in one process, on weights of the port's
+    own seeded init (the elastic run from their checkpoint at step 0): the
+    run for a machine without JAX (the card's, whose torch may differ from
+    the one the tests run on). ``python tests/test_torch_distributed.py
+    card-check <tmp>``: the script's directory is on the path (a ``tests``
+    package installed elsewhere may shadow this one)."""
+    from torch_world import join_world, run_world
+    cfg = _cfg()
+    params, batch = build(cfg, _rc()).init(torch.Generator().manual_seed(0)), _batch()
+    torch.save({"params": tree_flatten_with_path(params), "batch": batch}, tmp / "inputs.pt")
+    Checkpointer(tmp / "ckpt").save(init_state(params), 0, blocking=True)
+    t0 = time.monotonic()
+    join_world(run_world(__file__, WORLD, tmp), tmp, t0 + TIMEOUT_S, TIMEOUT_S)
+    train = _single_train(cfg, params, batch)
+    port = {"heads": train, "seq": train,
+            "heads_accum": _single_train(cfg, params, batch, grad_accum=2),
+            "elastic": _single_elastic(cfg, params)}
+    port["serve"] = port["serve_seq"] = port["serve_straddle"] = serve_logits(params, batch,
+                                                                              None)
+    world = {"out": torch.load(tmp / "results.pt", weights_only=False),
+             "refs": {"port": port}, "tmp": tmp}
+    test_ring_all_reduce_matches_all_reduce(world)
+    for case in sorted(TRAIN_CASES):
+        test_sharded_train_step_matches_single_process(world, case)
+    for case in ("serve", "serve_seq", "serve_straddle"):
+        test_sharded_prefill_and_decode_match_single_process(world, case, "port")
+    test_elastic_shrink_restores_and_replays(world, "port")
+    print(f"CARD_CHECK_OK torch {torch.__version__}: the ring, {len(TRAIN_CASES)} train "
+          f"cases, 3 served and the elastic run on the gloo world of {WORLD} equal one "
+          f"process; seconds {world['out']['seconds']}")
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:
     worker(int(sys.argv[2]), Path(sys.argv[3]))
+if __name__ == "__main__" and sys.argv[1:2] == ["card-check"]:
+    card_check(Path(sys.argv[2]))

@@ -26,9 +26,15 @@ alone (``LONG_CTX``): with the batch below the data axis the decode
 cache takes the long-context layout, its T cut over data, so each rank
 writes and attends over its own slots and the softmax is reduced over
 them. Training is one AdamW step of mamba2, zamba2 and qwen2-moe, the
-MoE at ``TRAIN_MOE_GROUP`` (each rank routes its own groups), and of
-mamba2 at grad_accum ``ACCUM`` (more micro-batches than a data rank
-holds rows: each is cut from the gathered batch).
+MoE at ``TRAIN_MOE_GROUP`` (each rank routes its own groups), and the
+``ACCUM`` cases: mamba2 at grad_accum 4, qwen2-moe at 2 and 4. Each
+micro-batch holds the rows one process's cut gives it, spread over the
+data ranks (``runtime.train.micro_batch``): at 2, one row a rank; at 4
+(a micro-batch of one row on two data ranks), one rank holds the row
+and the other none. An MoE's micro-batch loss is not linear in its rows
+(the aux loss is a product of two means over its tokens, and its
+capacity groups are its own), so the step's loss and gradient equal one
+process's only when every micro-batch holds the same rows.
 
 Every result is held twice: against the port in one process, and
 against the JAX package's sharded twin on the same weights and inputs
@@ -81,9 +87,12 @@ SERVE_ARCHS = ("mamba2-2.7b", "zamba2-1.2b", "qwen2-moe-a2.7b", "musicgen-medium
 TRAIN_ARCHS = ("mamba2-2.7b", "zamba2-1.2b", "qwen2-moe-a2.7b")
 TRAIN_MOE_GROUP = 32        # each data rank's 2 x 32 rows hold whole groups
 LONG_CTX = "zamba2-1.2b"    # also served at batch 1: the cache's T on data
-# also trained with more micro-batches than a data rank holds rows (2): each
-# micro-batch is cut from the gathered batch
-ACCUM = ("mamba2-2.7b", 4)
+# the train cases at grad_accum > 1: case -> (arch, grad_accum). The batch puts
+# 2 rows on each data rank: at 2 a micro-batch holds one row a rank, at 4 one
+# row on the first data rank and none on the second (an empty shard)
+ACCUM = {"train_accum/mamba2-2.7b": ("mamba2-2.7b", 4),
+         "train_accum2/qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", 2),
+         "train_accum4/qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", 4)}
 STEP_TOL = 1e-4
 OPT = dict(lr=1e-3, warmup_steps=0)
 LOGITS_TOL = 1e-5
@@ -252,9 +261,9 @@ def worker(rank: int, tmp: Path) -> None:
             out[f"serve1/{arch}"] = serve_logits(cfg, params, inputs[arch], mesh, batch=1)
         if arch in TRAIN_ARCHS:
             out[f"train/{arch}"] = train_step(cfg, params, inputs[arch], mesh)
-        if arch == ACCUM[0]:
-            out[f"train_accum/{arch}"] = train_step(cfg, params, inputs[arch], mesh,
-                                                    grad_accum=ACCUM[1])
+        for case, (accum_arch, accum) in ACCUM.items():
+            if arch == accum_arch:
+                out[case] = train_step(cfg, params, inputs[arch], mesh, grad_accum=accum)
         out["seconds"][arch] = time.perf_counter() - t0
     if rank == 0:
         torch.save(out, tmp / "results.pt")
@@ -315,18 +324,24 @@ for arch, cfg_kw in a["cfgs"].items():
             logits, cache = decode(sp, cache, nxt)
             steps.append(logits[:, -1])
         out[key + arch] = np.stack([np.asarray(l) for l in steps])
-    cases = ([("train/", 1)] if arch in a["train"] else []) + (
-        [("train_accum/", a["accum"][1])] if arch == a["accum"][0] else [])
+    cases = ([("train/" + arch, 1)] if arch in a["train"] else []) + [
+        (case, accum) for case, (accum_arch, accum) in a["accum"].items() if accum_arch == arch]
     for key, accum in cases:
         trc = TrainRunConfig(opt=OptConfig(**a["opt"]), grad_accum=accum)
         trc_rc = rc.replace(moe_group=a["train_moe_group"]) if cfg.n_experts else rc
         step, _, tmeta, st_sh, b_sh, model = build_train_step(cfg, mesh, B=B, S=S, rc=trc_rc,
                                                               trc=trc)
         tb = {k: batch[k] for k in tmeta}
-        loss, grads = jax.jit(jax.value_and_grad(model.loss))(host, tb)
+        # the step's loss and gradient: their means over its micro-batches
+        m = B // accum
+        vg = jax.jit(jax.value_and_grad(model.loss))
+        micro = [vg(host, {k: v[i * m:(i + 1) * m] for k, v in tb.items()})
+                 for i in range(accum)]
+        loss = sum(float(l) for l, _ in micro) / accum
+        grads = jax.tree.map(lambda *g: sum(g) / accum, *[g for _, g in micro])
         new, met = step(jax.device_put(init_state(host), st_sh),
                         shard_batch(tb, mesh, jax.tree.map(lambda s: s.spec, b_sh)))
-        out[key + arch] = {"loss": float(loss), "grads": flat(grads),
+        out[key] = {"loss": loss, "grads": flat(grads),
                            "step_loss": float(met["loss"]),
                            "grad_norm": float(met["grad_norm"]),
                            "params": flat(new.params)}
@@ -388,9 +403,9 @@ def world(tmp_path_factory):
                 port[f"serve1/{arch}"] = serve_logits(cfg, params, inputs, None, batch=1)
             if arch in TRAIN_ARCHS:
                 port[f"train/{arch}"] = train_step(cfg, params, inputs, None)
-            if arch == ACCUM[0]:
-                port[f"train_accum/{arch}"] = train_step(cfg, params, inputs, None,
-                                                         grad_accum=ACCUM[1])
+            for case, (accum_arch, accum) in ACCUM.items():
+                if arch == accum_arch:
+                    port[case] = train_step(cfg, params, inputs, None, grad_accum=accum)
     finally:
         join_world(procs, tmp, deadline, TIMEOUT_S)
     jax_refs = pickle.loads((tmp / "jax_refs.pkl").read_bytes())
@@ -423,10 +438,11 @@ def test_sharded_prefill_and_decode_match(world, case, ref_of):
 
 @pytest.mark.parametrize("ref_of", ["port", "jax"])
 @pytest.mark.parametrize("case", [f"train/{a}" for a in TRAIN_ARCHS]
-                         + [f"train_accum/{ACCUM[0]}"])
+                         + list(ACCUM))
 def test_sharded_train_step_matches(world, case, ref_of):
     """The step's loss and gradient are the means over its micro-batches
-    (the whole batch's); "train_accum/" takes ``ACCUM``'s micro-batches."""
+    (the whole batch's at grad_accum 1); an ``ACCUM`` case takes its
+    micro-batches, the JAX references too."""
     got, ref = world["out"][case], world["refs"][ref_of][case]
     for key in ("loss", "step_loss", "grad_norm"):
         assert abs(got[key] - ref[key]) <= 1e-5 * abs(ref[key]), (key, got[key], ref[key])
@@ -465,9 +481,9 @@ def card_check(tmp: Path) -> None:
             port[f"serve1/{arch}"] = serve_logits(cfg, params, inputs, None, batch=1)
         if arch in TRAIN_ARCHS:
             port[f"train/{arch}"] = train_step(cfg, params, inputs, None)
-        if arch == ACCUM[0]:
-            port[f"train_accum/{arch}"] = train_step(cfg, params, inputs, None,
-                                                     grad_accum=ACCUM[1])
+        for case, (accum_arch, accum) in ACCUM.items():
+            if arch == accum_arch:
+                port[case] = train_step(cfg, params, inputs, None, grad_accum=accum)
     torch.save(rank_inputs, tmp / "inputs.pt")
     t0 = time.monotonic()
     join_world(run_world(__file__, WORLD, tmp), tmp, t0 + TIMEOUT_S, TIMEOUT_S)
@@ -476,10 +492,11 @@ def card_check(tmp: Path) -> None:
     test_k2_on_local_heads_joined_equals_the_whole_call(world)
     for case in [f"serve/{a}" for a in SERVE_ARCHS] + [f"serve1/{LONG_CTX}"]:
         test_sharded_prefill_and_decode_match(world, case, "port")
-    for case in [f"train/{a}" for a in TRAIN_ARCHS] + [f"train_accum/{ACCUM[0]}"]:
+    for case in [f"train/{a}" for a in TRAIN_ARCHS] + list(ACCUM):
         test_sharded_train_step_matches(world, case, "port")
     print(f"CARD_CHECK_OK torch {torch.__version__}: K2 on local heads, "
-          f"{len(SERVE_ARCHS) + 1} served and {len(TRAIN_ARCHS) + 1} trained cases on the "
+          f"{len(SERVE_ARCHS) + 1} served and {len(TRAIN_ARCHS) + len(ACCUM)} trained cases "
+          f"on the "
           f"(2, 2) gloo world equal one process; seconds {world['out']['seconds']}")
 
 

@@ -32,6 +32,19 @@ step's live-storage high-water mark) beside JAX's ``temp_size_in_bytes``:
 at most twice JAX's, which holds because the loss runs on each rank's
 vocab shard.
 
+A multi-pod cell where a rank holds fewer rows than micro-batches
+(``SCOUT``: llama4-scout-17b-a16e at full width cut to 1 layer, B=8,
+S=512 on (pod 2, data 2, model 2), grad_accum 8, as the full model's 16
+on 2x16x16 leaves 8 rows a rank) goes through both sides' ``build_cell``
+in the same two subprocesses (JAX's compiles in about 5 s on the CPU, so
+the cell keeps its full width): each micro-batch of one row sits on one
+dp rank, the head's product and loss are shared by every rank (the rows
+against each rank's vocab slice), and the port's per-device FLOPs are at
+most 1.10x JAX's, argument bytes equal. And at 2 rows a rank (``HEAD``:
+qwen2-0.5b, 1 layer, B=16 on (4, 2), grad_accum 2) the head multiplies
+each rank's own rows: no product of the head takes more rows than the
+rank holds, and no collective moves logits.
+
 Last, every arch x shape cell on the 256-rank production mesh, each cut
 to one segment, traces with status ``ok`` or, where ``shape_applicable``
 says so, ``skipped``.
@@ -51,6 +64,11 @@ LAYERS = 2
 FLOPS_TOL = 0.10
 RECKON_TOL = 0.01
 CELLS_TIMEOUT_S = 900
+# the multi-pod cell (both sides) and the 2-rows-a-rank head cell (the port)
+SCOUT = {"arch": "llama4-scout-17b-a16e", "layers": 1, "grid": [2, 2, 2], "B": 8, "S": 512,
+         "accum": 8}
+SCOUT_FLOPS_RATIO = 1.10
+HEAD = {"arch": "qwen2-0.5b", "layers": 1, "grid": [4, 2], "B": 16, "S": 512, "accum": 2}
 
 _JAX = """
 import dataclasses, json
@@ -76,11 +94,24 @@ for (path, sds), sh in zip(args, shardings):
                    for k in path)
     leaves[key] = int(np.prod(sh.shard_shape(sds.shape))) * np.dtype(sds.dtype).itemsize
 mem = compiled.memory_analysis()
+
+from repro.optim.adamw import OptConfig
+from repro.runtime.train import TrainRunConfig
+sc = SCOUT_ARGS
+scout_cfg = dataclasses.replace(get_config(sc["arch"]), n_layers=sc["layers"])
+scout_fn, scout_kw = build_cell(
+    scout_cfg, ShapeConfig("train_cut", "train", sc["S"], sc["B"]),
+    make_mesh(tuple(sc["grid"]), ("pod", "data", "model")),
+    trc=TrainRunConfig(opt=OptConfig(), grad_accum=sc["accum"]))
+scout = scout_fn.lower(*scout_kw.values()).compile()
 print(json.dumps({"flops": stats.flops,
                   "argument_bytes": mem.argument_size_in_bytes,
                   "temp_bytes": mem.temp_size_in_bytes,
                   "collective_bytes": dict(stats.collective_bytes),
-                  "leaves": leaves}))
+                  "leaves": leaves,
+                  "scout": {"flops": hlo_analysis.analyze(scout.as_text()).flops,
+                            "argument_bytes": scout.memory_analysis().argument_size_in_bytes,
+                            "temp_bytes": scout.memory_analysis().temp_size_in_bytes}}))
 """
 
 _PORT = """
@@ -107,6 +138,57 @@ for layers in (LAYERS, 2 * LAYERS):
                    "temp_bytes": ta.stats.peak_live_bytes,
                    "collective_bytes": dict(ta.stats.collective_bytes),
                    "leaves": leaves}
+
+import torch
+from repro_torch.launch.trace_analysis import _collective
+from repro_torch.optim.adamw import OptConfig
+from repro_torch.runtime.train import TrainRunConfig
+
+
+class Shapes(TraceAnalysis):
+    # also records the products' operand shapes and the collectives' outputs
+    def __init__(self):
+        super().__init__()
+        self.mm, self.moved = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is NotImplemented or self._propagating:
+            return out
+        if str(func._overloadpacket) == "aten.mm":
+            self.mm.append([list(args[0].shape), list(args[1].shape)])
+        elif _collective(func) and isinstance(out, torch.Tensor):
+            self.moved.append([_collective(func), list(out.shape)])
+        return out
+
+
+# the MoE's straddle branch (a group across two ranks' rows: the batch
+# gathered, every rank routing it all) is its only gather of the tokens' rows
+from repro_torch.models import moe
+straddled = []
+
+
+def unshard_dim(x, dim):
+    straddled.append(x.ndim == 3 and dim % x.ndim == 0)
+    return mesh_lib.unshard_dim(x, dim)
+
+
+from repro_torch.parallel import mesh as mesh_lib
+moe.unshard_dim = unshard_dim
+
+for name, c in (("scout", SCOUT_ARGS), ("head", HEAD_ARGS)):
+    straddled.clear()
+    axes = ("pod", "data", "model")[-len(c["grid"]):]
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["layers"])
+    fn, kwargs = dryrun.build_cell(cfg, ShapeConfig("train_cut", "train", c["S"], c["B"]),
+                                   make_mesh(tuple(c["grid"]), axes),
+                                   trc=TrainRunConfig(opt=OptConfig(), grad_accum=c["accum"]))
+    with Shapes() as ta:
+        fn(*kwargs.values())
+    out[name] = {"flops": ta.stats.flops, "argument_bytes": dryrun.local_bytes(kwargs),
+                 "temp_bytes": ta.stats.peak_live_bytes, "vocab_padded": cfg.vocab_padded,
+                 "mm": ta.mm, "moved": ta.moved, "straddled": sum(straddled),
+                 "moe_gathers": len(straddled)}
 print(json.dumps(out))
 """
 
@@ -121,7 +203,13 @@ def _run(code: str, env_extra: dict, timeout: int) -> str:
 
 def _fill(code: str) -> str:
     return (code.replace("LAYERS", repr(LAYERS)).replace("MESH", repr(MESH))
-            .replace("S, B)", f"{S}, {B})"))
+            .replace("S, B)", f"{S}, {B})").replace("SCOUT_ARGS", repr(SCOUT))
+            .replace("HEAD_ARGS", repr(HEAD)))
+
+
+def _keyed(port_out: dict) -> dict:
+    """The port's JSON: the parity cell by depth (int keys), the rest by name."""
+    return {int(k) if k.isdigit() else k: v for k, v in port_out.items()}
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +218,7 @@ def parity():
         "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
         "JAX_PLATFORMS": "cpu"}, 600).strip().splitlines()[-1])
     port_out = json.loads(_run(_fill(_PORT), {}, 600).strip().splitlines()[-1])
-    return {"jax": jax_out, "port": {int(k): v for k, v in port_out.items()}}
+    return {"jax": jax_out, "port": _keyed(port_out)}
 
 
 def _reckoned(layers: int) -> dict:
@@ -193,6 +281,48 @@ def test_argument_bytes_equal_jax(parity):
         pytest.fail(f"argument bytes: port {port['argument_bytes']}, JAX "
                     f"{jax_out['argument_bytes']}; leaves that differ: {diff}")
     assert sum(port["leaves"].values()) == port["argument_bytes"]
+
+
+def test_multi_pod_cell_with_fewer_rows_than_micro_batches(parity):
+    """``SCOUT``: 8 rows on 4 dp ranks, 8 micro-batches of one row. JAX
+    compiles it; the port cuts each micro-batch as one process does and
+    puts its row on one dp rank (``runtime.train.micro_batch``), its head
+    shared by every rank. Before, every rank gathered the batch and held
+    the micro-batch's row, which DTensor then split as it chose."""
+    jax_out, port = parity["jax"]["scout"], parity["port"]["scout"]
+    ratio = port["flops"] / jax_out["flops"]
+    print(f"{SCOUT['arch']} ({SCOUT['layers']} layer, B={SCOUT['B']}, S={SCOUT['S']}, "
+          f"grad_accum {SCOUT['accum']}, mesh {SCOUT['grid']}): per-device FLOPs port "
+          f"{port['flops']:.4e}, JAX {jax_out['flops']:.4e} ({ratio:.3f}x); arguments "
+          f"{port['argument_bytes']} / {jax_out['argument_bytes']} B; temp port "
+          f"{port['temp_bytes'] / 1e9:.3f} GB, JAX {jax_out['temp_bytes'] / 1e9:.3f} GB")
+    assert ratio <= SCOUT_FLOPS_RATIO
+    assert port["argument_bytes"] == jax_out["argument_bytes"]
+    # each rank routes its own row's groups (512 tokens, one group a row):
+    # the MoE's straddle branch never runs
+    assert port["moe_gathers"] > 0 and port["straddled"] == 0, port["straddled"]
+    # the head's products take each rank's slice of the vocab, cut over all 8
+    # ranks (25,280 of 202,240 rows), not the model rank's half: no product
+    # has a larger dim
+    share = -(-port["vocab_padded"] // (SCOUT["grid"][0] * SCOUT["grid"][1] * SCOUT["grid"][2]))
+    assert max(d for a, b in port["mm"] for d in a + b) <= share
+
+
+def test_head_takes_each_ranks_own_rows(parity):
+    """``HEAD``: 16 rows on data=4, grad_accum 2: a micro-batch of 8 rows,
+    2 a rank. The head's D is gathered (its FSDP dim, on data as the
+    rows are), so its product takes the rank's 2 rows against its vocab
+    slice, and no logits move. Left to DTensor, the product took the
+    micro-batch's 8 rows against a quarter of D, its logits all-gathered
+    and reduce-scattered: (8, 512, 76032) and (2, 512, 76032) for this
+    cell, bf16."""
+    port = parity["port"]["head"]
+    cols = port["vocab_padded"] // HEAD["grid"][1]
+    rows = HEAD["B"] // HEAD["accum"] // HEAD["grid"][0] * HEAD["S"]
+    head = [(a, b) for a, b in port["mm"] if b[1] == cols]
+    assert head and all(a[0] == rows for a, _ in head), head
+    logits = [m for m in port["moved"] if len(m[1]) == 3 and m[1][-1] == cols]
+    assert not logits, logits
 
 
 def test_collective_bytes_counted(parity):
@@ -344,8 +474,8 @@ def card_check(out_dir: Path) -> None:
     parity cell and every cell on the production mesh. ``python
     tests/test_torch_dryrun.py card-check <dir>``."""
     port_out = json.loads(_run(_fill(_PORT), {}, 600).strip().splitlines()[-1])
-    test_no_global_shape_propagation_is_counted({"port": {int(k): v
-                                                          for k, v in port_out.items()}})
+    test_no_global_shape_propagation_is_counted({"port": _keyed(port_out)})
+    test_head_takes_each_ranks_own_rows({"port": _keyed(port_out)})
     test_every_cell_traces_on_the_production_mesh(out_dir)
     print(f"CARD_CHECK_OK: per-device FLOPs of the parity cell {port_out[str(LAYERS)]['flops']:.4e}"
           f" (reckoned {_reckoned(LAYERS)['total']:.4e}); every cell ok or skipped")
