@@ -236,7 +236,11 @@ Phases; any failure exits non-zero and prints no result line:
    fails the run. The full-depth cell's temporaries a device are printed
    beside JAX's (``JAX_DRYRUN_FULL_TEMP_BYTES``, compiled on a CPU) with
    the storages that hold its peak, and its arguments + temp must fit
-   ``DRYRUN_DEVICE_BYTES``.
+   ``DRYRUN_DEVICE_BYTES``. llama4-scout-17b-a16e ``train_4k`` cut to 2
+   layers at the full model's grad_accum 16 on 2x16x16 (``DRYRUN_MULTI_POD``)
+   and on 16x16 (``DRYRUN_SCOUT_CUT``), each held to JAX's FLOPs a device
+   of the same cut; no train cell's gradient may leave ``autograd.grad``
+   larger than its param's shard (each cell's ``grad_shards``).
 12. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the served models' prefills, ``launches_by_arch`` per model,
    ``decode_launches_per_step_by_arch`` where a decode step launches it,
@@ -412,6 +416,15 @@ DRYRUN_MULTI_POD = ("llama4-scout-17b-a16e", "train_4k", 2, 16)
 JAX_DRYRUN_MULTI_POD_FLOPS = 4.635611889664e13
 JAX_DRYRUN_MULTI_POD_TEMP_BYTES = 7148397120
 JAX_DRYRUN_MULTI_POD_ARGUMENT_BYTES = 304205828
+# the same cut on the 16x16 mesh: each layer's weights gathered and their
+# gradients reduce-scattered where the layer runs, wo's kept on model, so the
+# port's FLOPs a device come within DRYRUN_SCOUT_CUT_FLOPS_RATIO of JAX's
+# (tests/jax_dryrun_cell.py llama4-scout-17b-a16e train_4k --layers 2
+# --grad-accum 16, compiled on a CPU)
+DRYRUN_SCOUT_CUT = ("llama4-scout-17b-a16e", "train_4k", 2, 16)
+DRYRUN_SCOUT_CUT_FLOPS_RATIO = 1.02
+JAX_DRYRUN_SCOUT_CUT_FLOPS = 5.148055175168e13
+JAX_DRYRUN_SCOUT_CUT_TEMP_BYTES = 6608617752
 ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_MORE = 10, 5, 2
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
@@ -2063,16 +2076,21 @@ def dry_run_cells() -> list:
     the ``fake`` backend (256 ranks, meta tensors, nothing launched):
     ``DRYRUN_FULL`` at full depth, then ``DRYRUN_SEGMENT_SHAPE`` of each of
     ``DRYRUN_SEGMENT_ARCHS`` cut to one segment, then ``DRYRUN_MULTI_POD``
-    on 512 ranks, held to JAX's FLOPs and temp of the same cut. Prints each
-    cell's per-device numbers; an erring cell fails the run."""
+    on 512 ranks, held to JAX's FLOPs and temp of the same cut, and
+    ``DRYRUN_SCOUT_CUT`` on 256, held to JAX's FLOPs. Prints each cell's
+    per-device numbers; an erring cell, or a train cell whose gradient
+    leaves ``autograd.grad`` larger than its param's shard, fails the run."""
     cells = []
     arch, shape, layers, accum = DRYRUN_MULTI_POD
+    cut = DRYRUN_SCOUT_CUT
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
         for args in (["--arch", DRYRUN_FULL[0], "--shape", DRYRUN_FULL[1]],
                      ["--arch", ",".join(DRYRUN_SEGMENT_ARCHS), "--shape",
                       DRYRUN_SEGMENT_SHAPE, "--segment"],
                      ["--arch", arch, "--shape", shape, "--mesh", "multi", "--layers",
-                      str(layers), "--grad-accum", str(accum)]):
+                      str(layers), "--grad-accum", str(accum)],
+                     ["--arch", cut[0], "--shape", cut[1], "--mesh", "single", "--layers",
+                      str(cut[2]), "--grad-accum", str(cut[3])]):
             t0 = time.perf_counter()
             run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
                                   "--out", out], capture_output=True, text=True,
@@ -2095,8 +2113,17 @@ def dry_run_cells() -> list:
                   f"{rf['compute_s'] * 1e3:.3f} ms, memory {rf['memory_s'] * 1e3:.3f} ms, "
                   f"collective {rf['collective_s'] * 1e3:.3f} ms, dominant {rf['dominant']}; "
                   f"useful_flops_ratio {c['useful_flops_ratio']:.3f}", flush=True)
+            shards = c.get("grad_shards")
+            if shards:
+                print(f"[11] {path.stem}: {len(shards['larger'])} of {shards['leaves']} "
+                      f"gradient leaves left autograd.grad larger than their param's shard"
+                      + "".join(f"; {g['leaf']} {g['grad']} (shard {g['shard']})"
+                                for g in shards["larger"]), flush=True)
+                _check(not shards["larger"], f"{path.stem}: gradients larger than their "
+                       f"shard: {shards['larger']}")
             cells.append(c)
-    _check(len(cells) == 2 + len(DRYRUN_SEGMENT_ARCHS), f"{len(cells)} dry-run cells")
+    _check(len(cells) == 3 + len(DRYRUN_SEGMENT_ARCHS), f"{len(cells)} dry-run cells")
+    _check(sum(1 for c in cells if c.get("grad_shards")) == 3, "three train cells")
     full = next(c for c in cells if (c["arch"], c["shape"]) == DRYRUN_FULL)
     ma = full["memory_analysis"]
     print(f"[11] {DRYRUN_FULL[0]} x {DRYRUN_FULL[1]} at full depth, a device: temp "
@@ -2125,6 +2152,20 @@ def dry_run_cells() -> list:
            f"{DRYRUN_MULTI_POD}: temp {ma['temp_bytes']} B, above twice JAX's")
     _check(ma["argument_bytes"] == JAX_DRYRUN_MULTI_POD_ARGUMENT_BYTES,
            f"{DRYRUN_MULTI_POD}: arguments {ma['argument_bytes']} B, not JAX's")
+    single = next(c for c in cells if c["mesh"] == "pod16x16" and c["arch"] == cut[0])
+    flops, ma = single["trace_per_device"]["flops"], single["memory_analysis"]
+    print(f"[11] {cut[0]} x {cut[1]} on pod16x16 cut to {cut[2]} layers at grad_accum "
+          f"{cut[3]}, a device: FLOPs {flops:.4e} (JAX's hlo_analysis of the same cut, "
+          f"compiled on a CPU: {JAX_DRYRUN_SCOUT_CUT_FLOPS:.4e}; "
+          f"{flops / JAX_DRYRUN_SCOUT_CUT_FLOPS:.3f}x, limit {DRYRUN_SCOUT_CUT_FLOPS_RATIO}x), "
+          f"temp {ma['temp_bytes'] / 1e9:.3f} GB (JAX's "
+          f"{JAX_DRYRUN_SCOUT_CUT_TEMP_BYTES / 1e9:.3f} GB; "
+          f"{ma['temp_bytes'] / JAX_DRYRUN_SCOUT_CUT_TEMP_BYTES:.3f}x); held at the peak by "
+          + "; ".join(f"{h['bytes'] / 1e9:.3f} GB {h['op']} {h['dtype']}{h['shape']} "
+                      f"x{h['count']}" for h in ma["peak_holders"][:3]), flush=True)
+    _check(flops <= DRYRUN_SCOUT_CUT_FLOPS_RATIO * JAX_DRYRUN_SCOUT_CUT_FLOPS,
+           f"{DRYRUN_SCOUT_CUT}: {flops:.4e} FLOPs a device, above "
+           f"{DRYRUN_SCOUT_CUT_FLOPS_RATIO}x JAX's")
     return cells
 
 

@@ -33,6 +33,7 @@ that stands for the full model passes the full model's count with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -51,7 +52,7 @@ from repro_torch.optim.adamw import OptConfig
 from repro_torch.parallel.sharding import ShardingPolicy, batch_specs, is_sharding, to_named
 from repro_torch.runtime.serve import build_decode_step, build_prefill_step
 from repro_torch.runtime.train import TrainRunConfig, build_train_step
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
 
 # NVIDIA H100 SXM data-sheet peaks, per card (NVIDIA H100 80GB HBM3, power
 # limit 700 W; a card set below 700 W runs slower under load)
@@ -133,6 +134,44 @@ def build_cell(cfg, shape, mesh, rc=None, policy=None, trc=None):
                       "cache": _place_meta(cache_meta, c_sh),
                       "batch": _place_meta(batch_meta, b_sh)}
     raise ValueError(shape.kind)
+
+
+def grad_shards(params, grads) -> dict:
+    """How the gradients that leave ``autograd.grad`` lie beside their params:
+    the number of leaves, each gradient's placements by leaf path, and the
+    leaves whose local gradient is larger than the param's local shard (a
+    gradient left whole on a mesh dim that shards its param)."""
+    ps, gs = tree_flatten_with_path(params), tree_flatten_with_path(grads)
+    larger = []
+    for k, p in ps.items():
+        g = gs[k]
+        gl = g.to_local() if isinstance(g, DTensor) else g
+        pl = p.to_local() if isinstance(p, DTensor) else p
+        if gl.numel() > pl.numel():
+            larger.append({"leaf": k, "grad": list(gl.shape), "shard": list(pl.shape)})
+    return {"leaves": len(ps), "larger": larger,
+            "placements": {k: [str(x) for x in getattr(g, "placements", ())]
+                           for k, g in gs.items()}}
+
+
+@contextlib.contextmanager
+def recording_grad_shards():
+    """Within it, the first (params, grads) that the train step's
+    ``value_and_grad`` returns is summed up by ``grad_shards`` into the
+    dict it yields (empty until a train step runs)."""
+    from repro_torch.runtime import train as train_lib
+    real, seen = train_lib.value_and_grad, {}
+
+    def record(loss_fn, params, batch):
+        loss, grads = real(loss_fn, params, batch)
+        if not seen:
+            seen.update(grad_shards(params, grads))
+        return loss, grads
+    train_lib.value_and_grad = record
+    try:
+        yield seen
+    finally:
+        train_lib.value_and_grad = real
 
 
 def roofline_terms(stats):
@@ -219,7 +258,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
     try:
         fn, kwargs = build_cell(cfg, shape, mesh, rc=rc, policy=policy, trc=trc)
         t_build = time.time() - t0
-        with TraceAnalysis() as ta:
+        with TraceAnalysis() as ta, recording_grad_shards() as shards:
             out = fn(*kwargs.values())
         t_trace = time.time() - t0 - t_build
     except Exception as e:  # a failing cell is a bug we must surface
@@ -261,6 +300,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
         "traced_flops_global": flops_global,
         "useful_flops_ratio": mf / flops_global if flops_global else 0.0,
         "ideal_step_s": ideal,
+        "grad_shards": shards,
         "roofline_fraction": ideal / max(terms.values()) if max(terms.values()) > 0 else 0.0,
     })
 
@@ -273,6 +313,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
         print("  temp held at its peak by: " + "; ".join(
             f"{h['bytes']/1e9:.3f}GB {h['op']} {h['dtype']}{h['shape']} x{h['count']}"
             for h in ma["peak_holders"][:3]))
+        if shards:
+            print(f"  gradients larger than their param's shard: {len(shards['larger'])} "
+                  f"of {shards['leaves']} leaves")
         print(f"  trace/dev: flops={stats.flops:.3e} "
               f"mem={stats.mem_bytes/1e9:.2f}GB "
               f"coll={stats.total_collective_bytes/1e9:.3f}GB "
@@ -291,25 +334,28 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
 def table(out_dir: Path) -> str:
     """A markdown table of the cells' JSONs in ``out_dir``: status,
     per-device FLOPs, useful_flops_ratio, collective GB by type, argument
-    and temp GB, the three roofline terms (ms, arithmetic on the
-    data-sheet peaks), the dominant one and ``trace_s``."""
+    and temp GB, the gradient leaves larger than their shard (a train
+    cell's; "-" otherwise), the three roofline terms (ms, arithmetic on
+    the data-sheet peaks), the dominant one and ``trace_s``."""
     kinds = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
     rows = ["| cell | layers | status | FLOPs/dev | useful | collective GB (" +
-            ", ".join(kinds) + ") | args GB | temp GB | compute ms | memory ms | "
-            "collective ms | dominant | trace s |",
-            "| --- " * 13 + "|"]
+            ", ".join(kinds) + ") | args GB | temp GB | grads > shard | compute ms | "
+            "memory ms | collective ms | dominant | trace s |",
+            "| --- " * 14 + "|"]
     for path in sorted(Path(out_dir).glob("*.json")):
         c = json.loads(path.read_text())
         name = f"{c['arch']} {c['shape']} {c['mesh']}" + (f" {c['tag']}" if c.get("tag") else "")
         if c["status"] != "ok":
-            rows.append(f"| {name} | {c.get('n_layers', '')} | {c['status']} |" + " |" * 10)
+            rows.append(f"| {name} | {c.get('n_layers', '')} | {c['status']} |" + " |" * 11)
             continue
         per, ma, rf = c["trace_per_device"], c["memory_analysis"], c["roofline"]
         coll = ", ".join(f"{per['collective_bytes'].get(k, 0) / 1e9:.3f}" for k in kinds)
+        shards = c.get("grad_shards")
+        larger = f"{len(shards['larger'])} of {shards['leaves']}" if shards else "-"
         rows.append(
             f"| {name} | {c['n_layers']} | ok | {per['flops']:.3e} | "
             f"{c['useful_flops_ratio']:.3f} | {coll} | {ma['argument_bytes'] / 1e9:.2f} | "
-            f"{ma['temp_bytes'] / 1e9:.1f} | {rf['compute_s'] * 1e3:.2f} | "
+            f"{ma['temp_bytes'] / 1e9:.1f} | {larger} | {rf['compute_s'] * 1e3:.2f} | "
             f"{rf['memory_s'] * 1e3:.2f} | {rf['collective_s'] * 1e3:.2f} | "
             f"{rf['dominant'].removesuffix('_s')} | {c['trace_s']} |")
     return "\n".join(rows)

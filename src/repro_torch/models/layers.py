@@ -20,6 +20,10 @@ def _no_constrain(x, logical_axes):
     return x
 
 
+def _no_gather(w):
+    return w
+
+
 # ---------------------------------------------------------------------------
 # Run-time configuration threaded through model code.
 # ---------------------------------------------------------------------------
@@ -41,7 +45,10 @@ class RunConfig:
     tensor parallelism in the attention, ``attn_exit_constrain`` also
     constrains the residual stream after the attention, and
     ``seq_shard_carry`` keeps the residual stream sequence-sharded on
-    the tp axis between blocks (Megatron-SP). The defaults leave every
+    the tp axis between blocks (Megatron-SP). ``fsdp_gather(w)`` gathers
+    a layer's weight over its FSDP mesh dims where the layer runs
+    (``transformer._use``; the identity without a mesh), as XLA gathers
+    inside the JAX package's layer scan. The defaults leave every
     path without a mesh as it was. The JAX RunConfig's attention-dispatch
     knobs have no counterpart: the port's full-H attention always goes
     through ``kernels.ops.attention`` and its chunked SSD scan through
@@ -60,6 +67,7 @@ class RunConfig:
     attn_exit_constrain: bool = False  # constrain h after the attention residual too
     seq_shard_carry: bool = False      # Megatron-SP: residual stream (B,S,D) on 'tp'
     constrain: Callable = _no_constrain   # constrain(x, logical_axes) -> x
+    fsdp_gather: Callable = _no_gather    # fsdp_gather(w) -> w whole on its FSDP dims
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
@@ -107,7 +115,13 @@ def embed_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
 # Primitive layers
 # ---------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
-    """RMSNorm in f32, cast back to input dtype; scale is (1 + g)."""
+    """RMSNorm in f32, cast back to input dtype; scale is (1 + g).
+
+    A ``Partial`` ``x`` (the residual stream after a row-parallel product,
+    unconstrained) is summed first: DTensor would sum it into rows sharded
+    over that mesh dim, which its backward cannot flatten where they do
+    not divide (8 rows on 7 ranks)."""
+    x = reduce_partial(x)
     dt = x.dtype
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
@@ -158,11 +172,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``w``'s D is sharded, each rank takes its slice of D and the product
     is summed at once (an all-reduce: DTensor gathers rows cut unevenly
     where a later op meets a Partial operand); where only ``w``'s F is
-    sharded, so is the product's. Every other product is DTensor's (or
-    plain).
+    sharded, so is the product's (a ``w`` already gathered is not gathered
+    again). Every other product is DTensor's (or plain), ``x``'s D first
+    cut where only ``w``'s is sharded (``_cut_contraction``), as above.
     """
     if not uneven_rows(x):
-        return x @ w
+        return _cut_contraction(x, w) @ w
     mesh, last = x.device_mesh, x.ndim - 1
     if any(isinstance(p, Shard) and 0 < p.dim < last for p in x.placements):
         raise ValueError(f"rows cut unevenly and an inner dim sharded: {x.placements}")
@@ -179,6 +194,24 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = (x.to_local(grad_placements=grad_placements(x, w))
          @ w.to_local(grad_placements=grad_placements(w, x)))
     return reduce_partial(from_local(y, mesh, out_pl, x.shape[:-1] + w.shape[1:]))
+
+
+def _cut_contraction(x, w):
+    """A DTensor ``x`` with its last dim cut over each mesh dim where ``w``'s
+    first (the contraction) is sharded and ``x``'s is whole: the product
+    is then Partial there, and its backward takes w's gradient in w's own
+    shard. Left to itself, DTensor multiplies such an ``x`` against w
+    gathered, or computes w's whole gradient on every rank of that dim
+    (a q-sequence-parallel block's ``wo``, whose input's heads were
+    gathered). Its backward gathers x's gradient."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    last = x.ndim - 1
+    placements = [Shard(last) if pw == Shard(0) and px == Replicate() else px
+                  for px, pw in zip(x.placements, w.placements)]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
 
 
 def swiglu(x, w1, w3, w2):
@@ -338,3 +371,65 @@ def _sharded_cross_entropy(logits: DTensor, labels, vocab_size: int) -> DTensor:
     loss = _VocabShardedCE.apply(logits.to_local(), labels, local_offset(logits, -1),
                                  vocab_size, [mesh.get_group(i) for i in dims])
     return from_local(loss, mesh, rows_pl, logits.shape[:-1])
+
+
+# ---------------------------------------------------------------------------
+# Embedding lookup on a vocab-sharded table
+# ---------------------------------------------------------------------------
+class _VocabShardedLookup(torch.autograd.Function):
+    """``table[tokens]`` on this rank's vocab rows [v0, v0 + n) of the table
+    (``table`` is that slice): a token outside them reads a zero row, and
+    the rows are summed over ``groups`` (the process groups of the mesh
+    dims that cut the vocab), where exactly one rank holds each token's
+    row, so the sum is that row. The backward needs no collective: each
+    rank adds the gradient's rows of its own tokens into its slice
+    (``index_put_`` with accumulate, as the plain index's backward does);
+    the others, clamped into the slice, add zero rows."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, v0: int, groups):
+        n = table.shape[0]
+        idx = tokens.long() - v0
+        here = (idx >= 0) & (idx < n)
+        idx = idx.clamp(0, max(n - 1, 0))
+        if n:
+            rows = table[idx].masked_fill(~here[..., None], 0)
+        else:                                    # an empty shard of an uneven cut
+            rows = table.new_zeros(tuple(idx.shape) + (table.shape[1],))
+        ctx.save_for_backward(idx, here)
+        ctx.table_shape = table.shape
+        return _all_reduce(rows, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, here = ctx.saved_tensors
+        grad = g.new_zeros(ctx.table_shape)
+        if grad.shape[0]:          # another rank's token adds a zero row to a clamped slot
+            grad.index_put_((idx,), g.masked_fill(~here[..., None], 0), accumulate=True)
+        return grad, None, None, None
+
+
+def vocab_sharded_lookup(table: DTensor, tokens) -> DTensor:
+    """``table[tokens]`` for a DTensor table (Vp, D) whose vocab may be cut
+    over some mesh dims, as Megatron's vocab-parallel embedding does it.
+
+    The table's D is gathered (its FSDP mesh dims), so each rank holds its
+    vocab rows whole: a slice of the table, never the whole. The tokens
+    are made whole on the vocab's mesh dims, and each rank reads its own
+    tokens' rows by a masked gather, summed over the vocab's mesh dims
+    (``_VocabShardedLookup``). The rows come back in the tokens'
+    placements; the slice's gradient is Partial where the tokens are
+    sharded, and the gather's backward reduces it into the table's own
+    placements (a reduce-scatter of the slice over the FSDP dims).
+    """
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    tokens = replicate_like(tokens, table) if not isinstance(tokens, DTensor) else tokens
+    tokens = tokens.redistribute(mesh, [Replicate() if i in vocab else p
+                                        for i, p in enumerate(tokens.placements)])
+    part = table.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                     for i in range(mesh.ndim)])
+    rows = _VocabShardedLookup.apply(
+        part.to_local(grad_placements=grad_placements(part, tokens)), tokens.to_local(),
+        local_offset(part, 0), [mesh.get_group(i) for i in vocab])
+    return from_local(rows, mesh, tokens.placements, tuple(tokens.shape) + (table.shape[1],))

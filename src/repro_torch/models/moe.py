@@ -170,13 +170,14 @@ def _apply_moe_local(params, x: DTensor, cfg, rc: RunConfig, group: int):
     the batch; where a group would straddle two ranks' rows the rows are
     gathered and every rank routes them all), redone alike on each rank
     of the experts' mesh dims. Each rank then runs its experts' slice of
-    dispatch and combine and their products (the fsdp dim of the
-    weights gathered), so the routed output is Partial on the experts'
-    mesh dims. The gradients of x and of the router are Partial on the
-    experts' mesh dims (each rank's experts add their share), those of
-    the router and the experts Partial on the batch's. The aux loss is
-    made whole from each rank's sums over its tokens, each divided by
-    the number of ranks on the experts' mesh dims, which repeat them.
+    dispatch and combine and their products (the block has gathered the
+    weights' fsdp dim: ``transformer._use``), so the routed output is
+    Partial on the experts' mesh dims. The gradients of x and of the
+    router are Partial on the experts' mesh dims (each rank's experts
+    add their share), those of the router and the experts Partial on the
+    batch's. The aux loss is made whole from each rank's sums over its
+    tokens, each divided by the number of ranks on the experts' mesh
+    dims, which repeat them.
     """
     mesh = x.device_mesh
     B, S, D = x.shape
@@ -185,8 +186,8 @@ def _apply_moe_local(params, x: DTensor, cfg, rc: RunConfig, group: int):
         x = unshard_dim(x, d)
     if (x.to_local().shape[0] * S) % group:
         x = unshard_dim(x, 0)
-    ws = [unshard_dim(params[k], 1) for k in ("w1", "w3", "w2")]
-    router = unshard_dim(params["router"], 0)
+    ws = [params[k] for k in ("w1", "w3", "w2")]
+    router = params["router"]
     # mesh dims where x is sharded (disjoint tokens) or the experts are
     tok = [isinstance(p, Shard) for p in x.placements]
     exp = [isinstance(p, Shard) for p in ws[0].placements]

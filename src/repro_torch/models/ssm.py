@@ -274,14 +274,14 @@ def apply_mamba(params, x, cfg, rc: RunConfig, state: Optional[SSMState] = None,
     cdt = rc.compute_dtype
 
     # under a mesh, each projection is placed as the scan takes it: batch on
-    # dp, heads on tp, B/C whole on tp (DTensor may leave a decode step's
-    # small product Partial over the fsdp axis, moving the activation in
-    # place of gathering the weight)
-    heads, rows = ("dp", None, "tp"), ("dp", None, None)
+    # dp, heads on tp, B/C whole on tp. B/C's weights are whole on tp: each
+    # tp rank takes its cut of their N columns, so no rank repeats another's
+    # product, and the output is gathered
+    heads, rows, cols = ("dp", None, "tp"), ("dp", None, None), (None, "tp")
     xv = rc.constrain(linear(x, params["in_x"]), heads)
     zv = rc.constrain(linear(x, params["in_z"]), heads)
-    Bv = rc.constrain(linear(x, params["in_B"]), rows)
-    Cv = rc.constrain(linear(x, params["in_C"]), rows)
+    Bv = rc.constrain(linear(x, rc.constrain(params["in_B"], cols)), rows)
+    Cv = rc.constrain(linear(x, rc.constrain(params["in_C"], cols)), rows)
     dt = rc.constrain(linear(x, params["in_dt"]), heads)
 
     tails = (None, None, None) if state is None else (state.conv_x, state.conv_B,

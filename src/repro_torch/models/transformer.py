@@ -27,7 +27,13 @@ Under a mesh, ``RunConfig.constrain`` places the residual stream where
 the JAX package constrains it: batch on dp after the embedding, at each
 block's exit (and after the attention with ``attn_exit_constrain``),
 sequence-sharded on tp between blocks with ``seq_shard_carry``
-(gathered at each block's entry), and the logits' vocab on tp.
+(gathered at each block's entry), and the logits' vocab on tp. Each
+block gathers its own layer's weights over the FSDP mesh dims where it
+runs (``_use``: inside the checkpoint under remat), so each layer's
+gradient is reduce-scattered there, as XLA does inside the JAX package's
+layer scan; a checkpointed block saves its rank's cut of the carry
+(``_maybe_remat``); the embedding lookup reads each rank's vocab rows
+(``layers.vocab_sharded_lookup``).
 """
 from __future__ import annotations
 
@@ -43,8 +49,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init, init_mlp,
                                        linear, rms_norm, softmax_cross_entropy,
-                                       uneven_rows)
-from repro_torch.parallel.mesh import from_local, unshard_dim
+                                       uneven_rows, vocab_sharded_lookup)
+from repro_torch.parallel.mesh import unbind, unshard_dim
 
 # SSM / router leaves that stay f32 through compute-dtype casting
 _KEEP_F32 = ("A_log", "dt_bias", "D_skip", "router", "gate")
@@ -59,27 +65,56 @@ def _require_family(cfg) -> None:
         raise ValueError(cfg.family)
 
 
-def _cast_params(params, rc: RunConfig):
-    """Cast every floating leaf to the compute dtype, except leaves whose
-    own key contains one of ``_KEEP_F32`` (a substring match, as in the
-    JAX package). Norm scales are cast too, so bf16 compute rounds them.
-    A leaf already in the compute dtype is returned as it is.
-    """
-    def cast(name, leaf):
-        if isinstance(leaf, dict):
-            return {k: cast(k, v) for k, v in leaf.items()}
-        if any(k in name for k in _KEEP_F32):
-            return leaf
-        if leaf.is_floating_point():
-            return leaf.to(rc.compute_dtype)
+# the leaves a block casts and gathers itself, layer by layer (``_use``)
+_BLOCK_KEYS = ("blocks", "cross_blocks", "shared_block")
+
+
+def _cast(name: str, leaf, rc: RunConfig):
+    """``leaf`` in the compute dtype, unless its own key contains one of
+    ``_KEEP_F32`` (a substring match, as in the JAX package); a dict leaf by
+    leaf. Norm scales are cast too, so bf16 compute rounds them. A leaf
+    already in the compute dtype is returned as it is."""
+    if isinstance(leaf, dict):
+        return {k: _cast(k, v, rc) for k, v in leaf.items()}
+    if (leaf.dtype == rc.compute_dtype or not leaf.is_floating_point()
+            or any(k in name for k in _KEEP_F32)):
         return leaf
-    return {k: cast(k, v) for k, v in params.items()}
+    return leaf.to(rc.compute_dtype)
 
 
-def _layer(tree, i: int):
-    """The i-th layer's view of a stacked params tree."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _cast_params(params, rc: RunConfig):
+    """``_cast`` of every leaf outside the blocks (the embedding, head and
+    final norm). Under a gradient the blocks' leaves are left to ``_use``,
+    each layer cast where its block runs; without one (serving) they are
+    cast whole here, one cast a leaf rather than one a layer, and ``_use``'s
+    cast finds them done."""
+    whole = not torch.is_grad_enabled()
+    return {k: v if k in _BLOCK_KEYS and not whole else _cast(k, v, rc)
+            for k, v in params.items()}
+
+
+def _use(name: str, leaf, rc: RunConfig):
+    """One layer's (or an unstacked block's) params as its products take them:
+    gathered over their FSDP mesh dims (``rc.fsdp_gather``: the tp dim stays
+    sharded), then cast (``_cast``). The gather's backward reduce-scatters
+    the layer's gradient into its param's placements, as FSDP does, so no
+    rank holds a whole layer's gradient; both run in the param's dtype (f32
+    in training), as the JAX package's HLO gathers the weights and reduces
+    their gradients. Under remat it runs inside the checkpoint: a gathered
+    weight is never saved for the backward. Params already used are
+    returned as they are (both steps are no-ops)."""
+    if isinstance(leaf, dict):
+        return {k: _use(k, v, rc) for k, v in leaf.items()}
+    return _cast(name, rc.fsdp_gather(leaf), rc)
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked params tree: each leaf unbound once
+    (``parallel.mesh.unbind``), so the backward stacks the layers' gradients
+    into one buffer a leaf, where a select a layer would write a zeroed stack
+    each."""
+    cols = {k: _layers(v, n) if isinstance(v, dict) else unbind(v) for k, v in tree.items()}
+    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
 
 
 def _segments(n_layers: int, every: int):
@@ -218,6 +253,7 @@ def _residual_add(h, delta, rc: RunConfig, block_exit: bool = False):
 def _apply_attn_block(bp, h, cfg, rc, positions, *, cache=None, cache_index=None,
                       return_kv=False):
     """-> (h, kv, aux): aux is the MoE's aux loss, None for an MLP block."""
+    bp = _use("", bp, rc)
     x1 = _enter(rms_norm(h, bp["ln1"], cfg.norm_eps), rc)
     a, kv = attn_lib.apply_attention(
         bp["attn"], x1, cfg, rc, positions,
@@ -233,6 +269,7 @@ def _apply_attn_block(bp, h, cfg, rc, positions, *, cache=None, cache_index=None
 
 
 def _apply_mamba_block(bp, h, cfg, rc, *, state=None, return_state=False):
+    bp = _use("", bp, rc)
     x1 = _enter(rms_norm(h, bp["ln"], cfg.norm_eps), rc)
     y, new_state = ssm_lib.apply_mamba(bp["mamba"], x1, cfg, rc, state=state,
                                        return_state=return_state)
@@ -242,6 +279,7 @@ def _apply_mamba_block(bp, h, cfg, rc, *, state=None, return_state=False):
 def _apply_cross_block(bp, h, cfg, rc, img_embeds, *, cache=None):
     """Gated cross-attention to the image: no MLP, no RoPE, not causal.
     ``img_embeds`` (B, N, D) in prefill, or the cached (xk, xv) in decode."""
+    bp = _use("", bp, rc)
     a, kv = attn_lib.apply_attention(
         bp["attn"], rms_norm(h, bp["ln"], cfg.norm_eps), cfg, rc, None,
         kv_x=img_embeds, causal=False, cache=cache, return_kv=True, is_cross=True)
@@ -254,14 +292,27 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
          torch.ops.aten.bmm.default)
 
 
+# where a checkpointed block's input, the carry it saves, is kept: its
+# sequence cut over tp, each rank its own part, as XLA keeps the saved
+# carries of the JAX package's rematted scan
+_SAVED_CARRY = ("dp", "tp", None)
+
+
 def _maybe_remat(fn, rc: RunConfig):
-    """``fn`` checkpointed as the JAX package's ``_maybe_remat`` does.
+    """``fn(bp, h)`` checkpointed as the JAX package's ``_maybe_remat`` does.
 
     ``remat`` off: ``fn`` itself. ``remat_policy="dots"``: a selective
     checkpoint that saves the matmul outputs (``_DOTS``) and recomputes
     the rest. Any other policy: a plain checkpoint that recomputes all of
     ``fn`` in the backward (``jax.checkpoint(fn)``). Without grad mode
     ``fn`` runs as it is: there is no backward to recompute for.
+
+    On a mesh the carry ``h`` that the checkpoint saves is first cut to
+    ``_SAVED_CARRY`` and put back in the carry's placements inside the
+    recomputed block (an all-gather over tp), so each rank saves its own
+    cut of each layer's residual, not the whole; ``bp``, the layer's f32
+    shards, is cast and gathered inside ``fn`` (``_use``). Without a mesh
+    both constrains are the identity.
     """
     if not rc.remat:
         return fn
@@ -270,10 +321,13 @@ def _maybe_remat(fn, rc: RunConfig):
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                              list(_DOTS))
 
-    def remat(*args):
+    def block(bp, h):
+        return fn(bp, rc.constrain(h, _carry_axes(rc)))
+
+    def remat(bp, h):
         if not torch.is_grad_enabled():
-            return fn(*args)
-        return checkpoint(fn, *args, **kw)
+            return fn(bp, h)
+        return checkpoint(block, bp, rc.constrain(h, _SAVED_CARRY), **kw)
     return remat
 
 
@@ -318,17 +372,12 @@ def _logits(params, h, cfg, rc: Optional[RunConfig] = None):
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 def _lookup(table, tokens):
-    """``table[tokens]``. On DTensors each rank looks up its own tokens in the
-    whole table (gathered), as DTensor's own index fails in its backward
-    with sharded indices (torch 2.11's index_put); the table's gradient is
-    then Partial over the mesh dims that shard the tokens."""
+    """``table[tokens]``; on a DTensor table each rank reads the rows of its
+    own vocab shard (``layers.vocab_sharded_lookup``): no rank gathers the
+    table, and its gradient comes back in the table's placements."""
     if not isinstance(table, DTensor):
         return table[tokens]
-    mesh = table.device_mesh
-    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
-    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in tokens.placements]
-    rows = whole.to_local(grad_placements=grad)[tokens.to_local()]
-    return from_local(rows, mesh, tokens.placements, tuple(tokens.shape) + (table.shape[1],))
+    return vocab_sharded_lookup(table, tokens)
 
 
 def _embed(params, cfg, rc: RunConfig, tokens, embeds):
@@ -390,18 +439,20 @@ def _attn_forward(params, cfg, rc, h, positions, img, return_cache):
     if img is not None:
         img = img.to(rc.compute_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    blocks = _layers(params["blocks"], cfg.n_layers)
+    cross_blocks = _layers(params["cross_blocks"], _n_cross(cfg)) if img is not None else []
     ks, vs, xks, xvs = [], [], [], []
     ci = 0
     for a, b, cross in segs:
         for i in range(a, b):
-            h, kv, layer_aux = attn_block(_layer(params["blocks"], i), h)
+            h, kv, layer_aux = attn_block(blocks[i], h)
             if layer_aux is not None:
                 aux = aux + layer_aux
             if return_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
         if cross:
-            h, xkv = _apply_cross_block(_layer(params["cross_blocks"], ci), h, cfg, rc, img)
+            h, xkv = _apply_cross_block(cross_blocks[ci], h, cfg, rc, img)
             if return_cache:
                 xks.append(xkv[0])
                 xvs.append(xkv[1])
@@ -419,14 +470,18 @@ def _mamba_forward(params, cfg, rc, h, positions, return_cache):
     segment (hybrid) -> (h, cache)."""
     mamba_block = _maybe_remat(lambda bp, hh: _apply_mamba_block(
         bp, hh, cfg, rc, return_state=return_cache), rc)
+    blocks = _layers(params["blocks"], cfg.n_layers)
+    # the shared block is cast (and gathered) once: its applications'
+    # gradients sum in the compute dtype, as on the one cast in the JAX package
+    shared_block = _use("", params["shared_block"], rc) if cfg.family == "hybrid" else None
     ks, vs, states = [], [], []
     for a, b, shared in _mamba_segments(cfg):
         for i in range(a, b):
-            h, st = mamba_block(_layer(params["blocks"], i), h)
+            h, st = mamba_block(blocks[i], h)
             if return_cache:
                 states.append(st)
         if shared:
-            h, kv, _ = _apply_attn_block(params["shared_block"], h, cfg, rc,
+            h, kv, _ = _apply_attn_block(shared_block, h, cfg, rc,
                                          positions, return_kv=return_cache)
             if return_cache:
                 ks.append(kv[0])
@@ -489,31 +544,35 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: Optional[torch.Tensor
     h = _embed(params, cfg, rc, tokens, embeds)
 
     positions = torch.full((h.shape[0], 1), index, device=h.device)
+    blocks = _layers(params["blocks"], cfg.n_layers)
     if cfg.family in ("ssm", "hybrid"):
+        shared_block = _use("", params["shared_block"], rc) if cfg.family == "hybrid" else None
         states = cache["ssm"]
         app = 0
         for a, b, shared in _mamba_segments(cfg):
             for i in range(a, b):
-                h, st = _apply_mamba_block(_layer(params["blocks"], i), h, cfg, rc,
+                h, st = _apply_mamba_block(blocks[i], h, cfg, rc,
                                            state=ssm_lib.SSMState(*(t[i] for t in states)))
                 for dst, src in zip(states, st):
                     ssm_lib.write_layer(dst, i, src)
             if shared:
-                h, _, _ = _apply_attn_block(params["shared_block"], h, cfg, rc, positions,
+                h, _, _ = _apply_attn_block(shared_block, h, cfg, rc, positions,
                                             cache=(cache["k"][app], cache["v"][app]),
                                             cache_index=index)
                 app += 1
     else:
         segs = (_segments(cfg.n_layers, cfg.cross_attn_every) if cfg.family == "vlm"
                 else [(0, cfg.n_layers, False)])
+        cross_blocks = (_layers(params["cross_blocks"], _n_cross(cfg))
+                        if cfg.family == "vlm" else [])
         ci = 0
         for a, b, cross in segs:
             for i in range(a, b):
-                h, _, _ = _apply_attn_block(_layer(params["blocks"], i), h, cfg, rc,
+                h, _, _ = _apply_attn_block(blocks[i], h, cfg, rc,
                                             positions, cache=(cache["k"][i], cache["v"][i]),
                                             cache_index=index)
             if cross:
-                h, _ = _apply_cross_block(_layer(params["cross_blocks"], ci), h, cfg, rc,
+                h, _ = _apply_cross_block(cross_blocks[ci], h, cfg, rc,
                                           None, cache=(cache["xk"][ci], cache["xv"][ci]))
                 ci += 1
 

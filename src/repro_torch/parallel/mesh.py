@@ -189,6 +189,22 @@ def unshard_dim(x, dim: int):
     return x.redistribute(x.device_mesh, placements)
 
 
+def unbind(x) -> list:
+    """``x.unbind(0)``. A DTensor, whose dim 0 no mesh dim may cut (a stacked
+    params leaf's layers), is unbound on each rank's shard and each layer
+    wrapped with the placements moved one dim down: DTensor's own unbind
+    need not exist in every torch. The backward stacks the layers'
+    gradients into one buffer in ``x``'s placements, each first brought
+    into the layer's placements."""
+    if not isinstance(x, DTensor):
+        return list(x.unbind(0))
+    if any(isinstance(p, Shard) and p.dim == 0 for p in x.placements):
+        raise ValueError(f"unbind of a DTensor sharded on dim 0: {x.placements}")
+    placements = moved_placements(x.placements, {d: d - 1 for d in range(1, x.ndim)})
+    return [from_local(t, x.device_mesh, placements, x.shape[1:])
+            for t in x.to_local().unbind(0)]
+
+
 def reduce_partial(x):
     """``x`` with each ``Partial`` placement summed into ``Replicate()`` (an
     all-reduce); any other tensor is returned as it is."""
@@ -267,6 +283,25 @@ def make_constrain(mesh, rules=None):
                 placements[i] = p
         return x.redistribute(mesh, placements)
     return constrain
+
+
+def make_fsdp_gather(mesh, rules=None):
+    """RunConfig.fsdp_gather hook: fsdp_gather(w) -> w gathered over the
+    mesh dims of the rules' "fsdp" axis (the ZeRO-3 storage shard), each
+    other placement kept (the tp dim stays sharded). A redistribute: its
+    backward reduce-scatters w's gradient back into w's placements."""
+    names = list(mesh_axes(mesh))
+    fsdp = set((rules or DEFAULT_RULES).get("fsdp", ()))
+
+    def gather(w):
+        if not isinstance(w, DTensor):
+            return w
+        placements = [Replicate() if isinstance(p, Shard) and names[i] in fsdp else p
+                      for i, p in enumerate(w.placements)]
+        if placements == list(w.placements):
+            return w
+        return w.redistribute(w.device_mesh, placements)
+    return gather
 
 
 def pick_attn_shard(cfg, mesh) -> str:

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models import RunConfig, build
-from repro_torch.parallel.mesh import make_constrain, pick_attn_shard
+from repro_torch.parallel.mesh import make_constrain, make_fsdp_gather, pick_attn_shard
 from repro_torch.parallel.sharding import (ShardingPolicy, batch_specs, cache_specs,
                                            is_sharding, param_specs, to_named)
 from repro_torch.runtime.specs import decode_batch_specs, prefill_batch_specs
@@ -23,11 +23,12 @@ from repro_torch.tree import tree_map
 
 
 def mesh_runconfig(cfg, mesh, rc: RunConfig, policy: ShardingPolicy) -> RunConfig:
-    """``rc`` with the mesh's constrain hook and attention sharding (as it is
-    without a mesh)."""
+    """``rc`` with the mesh's constrain and FSDP-gather hooks and attention
+    sharding (as it is without a mesh)."""
     if mesh is None:
         return rc
     return rc.replace(constrain=make_constrain(mesh, policy.r()),
+                      fsdp_gather=make_fsdp_gather(mesh, policy.r()),
                       attn_shard=pick_attn_shard(cfg, mesh))
 
 

@@ -8,9 +8,11 @@ JAX package's ``jit`` has no counterpart here.
 Given a ``DeviceMesh``, ``build_train_step`` returns the state's and the
 batch's shardings (``parallel.sharding.NamedSharding`` trees, the JAX
 step's ``in_shardings``) and a step over DTensors: the model runs with
-the mesh's constrain hook, each gradient is redistributed into its
-param's placements (the FSDP reduce-scatter, or the all-reduce of a
-replicated leaf), AdamW updates every leaf in those placements (the
+the mesh's constrain and FSDP-gather hooks, so each layer's gradient
+leaves the backward reduce-scattered into its param's placements; any
+other gradient is redistributed into them here (the all-reduce of a
+replicated leaf, the head's and final norm's), AdamW updates every leaf
+in those placements (the
 JAX step's ``out_shardings``), and the metrics come back as plain
 replicated tensors.
 """
@@ -143,6 +145,8 @@ def micro_batch(x: torch.Tensor, a: int, i: int) -> torch.Tensor:
 
 
 def _like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` in its param's placements: a no-op for the blocks' gradients,
+    which their layers' gathers reduce-scatter (``transformer._use``)."""
     if isinstance(p, DTensor):
         return g.redistribute(p.device_mesh, p.placements)
     return g

@@ -18,7 +18,11 @@ rank's 7 q heads read one KV head), on (2, 4) query rows (14 % 4 != 0:
 each rank's 8 rows run at q_offset 0, 8, 16 or 24 against the full
 k/v); a third case takes the (4, 2) step with grad_accum 2, each
 micro-batch the rows one process's cut gives it, spread over the data
-ranks (``runtime.train.micro_batch``). Serving
+ranks (``runtime.train.micro_batch``). Two more run under remat: on the
+(1, 7) mesh over 7 of the 8 ranks below ("dots": 2 of the 14 heads a
+rank, straddling the GQA groups), and on (2, 4) ("full": each layer's
+weights gathered and its carry cut over tp inside the checkpoint, and
+``wo``'s input cut over tp so its gradient keeps its shard). Serving
 (prefill, then greedy decode against the grown cache) runs on (4, 2), on
 (2, 4) (the cache's head_dim on tp, so decode sums its scores over tp)
 and on a (1, 7) mesh over 7 of the 8 ranks (2 of the 14 heads a rank,
@@ -72,14 +76,16 @@ VOCAB = 500
 LAYERS = 2
 STEP_TOL = 1e-4
 OPT = dict(lr=1e-3, warmup_steps=0)
-# mesh shape, the RunConfig knob and the grad_accum of each train case
+STRADDLE_TP = 7            # 14 heads on model=7: rank 3 holds heads 6 and 7 of groups 0 and 1
+# mesh shape, the RunConfig knobs and the grad_accum of each train case
 TRAIN_CASES = {"heads": ((4, 2), {"attn_exit_constrain": True}, 1),
                "seq": ((2, 4), {"seq_shard_carry": True}, 1),
-               "heads_accum": ((4, 2), {}, 2)}
+               "heads_accum": ((4, 2), {}, 2),
+               "straddle": ((1, STRADDLE_TP), {"remat": True, "remat_policy": "dots"}, 1),
+               "seq_remat": ((2, 4), {"remat": True, "remat_policy": "full"}, 1)}
 # (4, 2): heads and the cache's KV heads on tp; (2, 4): query rows, and the
 # cache's head_dim on tp (2 KV heads on 4), so decode sums its scores over tp
 SERVE_MESHES = {"serve": (4, 2), "serve_seq": (2, 4)}
-STRADDLE_TP = 7            # 14 heads on model=7: rank 3 holds heads 6 and 7 of groups 0 and 1
 DECODE_STEPS = 3
 ELASTIC = dict(steps=10, fail_at=8, fail_devices=4, ckpt_every=5)
 ELASTIC_OPT = dict(warmup_steps=2, total_steps=30)
@@ -146,6 +152,8 @@ def _train(out, params, batch, meshes):
     for name, (shape, kw, accum) in TRAIN_CASES.items():
         trc = ttrain.TrainRunConfig(opt=OptConfig(**OPT), grad_accum=accum)
         mesh = meshes[shape]
+        if mesh is None:            # a rank outside the straddle mesh's 7
+            continue
         step, _, _, st_sh, b_sh, model = ttrain.build_train_step(
             cfg, mesh, B=B, S=S, rc=_rc(**kw), trc=trc)
         state = ttrain.distribute(init_state(params), st_sh)
@@ -177,11 +185,10 @@ def _recording_grads():
 
 
 def _serve(out, params, batch, meshes):
-    from repro_torch.launch.mesh import mesh_from_ranks
     for case, shape in SERVE_MESHES.items():
         out[case] = serve_logits(params, batch, meshes[shape])
     # 7 of the 8 ranks: each holds 2 of the 14 heads, which straddle GQA groups
-    mesh = mesh_from_ranks(range(STRADDLE_TP), (1, STRADDLE_TP), ("data", "model"))
+    mesh = meshes[(1, STRADDLE_TP)]
     if mesh is not None:
         out["serve_straddle"] = serve_logits(params, batch, mesh)
 
@@ -234,8 +241,12 @@ def worker(rank: int, tmp: Path) -> None:
     inputs = torch.load(tmp / "inputs.pt", weights_only=False)
     params = tree_rebuild(build(_cfg(), _rc()).init_eval_shape(), inputs["params"])
     from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import mesh_from_ranks
     meshes = {shape: init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
               for shape in ((4, 2), (2, 4))}
+    # every rank takes part in making it; rank 7 gets None
+    meshes[(1, STRADDLE_TP)] = mesh_from_ranks(range(STRADDLE_TP), (1, STRADDLE_TP),
+                                               ("data", "model"))
     out = {"seconds": {}}
     phases = (("ring", lambda: _ring(out)), ("shards", lambda: _local_shards(tmp)),
               ("train", lambda: _train(out, params, inputs["batch"], meshes)),
@@ -407,7 +418,7 @@ def world(tmp_path_factory):
     try:
         run_subprocess(_JAX.replace("TMP", repr(str(tmp))), devices=WORLD)
         train = _single_train(cfg, params, batch)
-        port = {"heads": train, "seq": train,
+        port = {"heads": train, "seq": train, "straddle": train, "seq_remat": train,
                 "heads_accum": _single_train(cfg, params, batch, grad_accum=2),
                 "elastic": _single_elastic(cfg, params)}
         port["serve"] = port["serve_seq"] = port["serve_straddle"] = serve_logits(
@@ -478,7 +489,8 @@ def _check_train(got, ref, case):
     micro-batches as one process and JAX's ``split`` cut them (the rows
     ``[0, B / a)`` first), so the first micro-batch's loss and every
     gradient leaf are compared, and the step's loss, grad norm and params."""
-    assert got["attn_shard"] == case.removesuffix("_accum")
+    assert got["attn_shard"] == ("heads" if _cfg().n_heads % TRAIN_CASES[case][0][1] == 0
+                                 else "seq")
     for key in ("loss", "step_loss", "grad_norm"):
         assert abs(got[key] - ref[key]) <= 1e-5 * abs(ref[key]), (key, got[key], ref[key])
     for k, g in ref["grads"].items():
@@ -610,7 +622,7 @@ def card_check(tmp: Path) -> None:
     t0 = time.monotonic()
     join_world(run_world(__file__, WORLD, tmp), tmp, t0 + TIMEOUT_S, TIMEOUT_S)
     train = _single_train(cfg, params, batch)
-    port = {"heads": train, "seq": train,
+    port = {"heads": train, "seq": train, "straddle": train, "seq_remat": train,
             "heads_accum": _single_train(cfg, params, batch, grad_accum=2),
             "elastic": _single_elastic(cfg, params)}
     port["serve"] = port["serve_seq"] = port["serve_straddle"] = serve_logits(params, batch,

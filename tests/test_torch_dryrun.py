@@ -30,7 +30,13 @@ qwen2-0.5b ``train_4k`` itself (B=256, S=4096) cut to 2 layers on the
 16x16 production mesh sets the port's temporaries a device (the traced
 step's live-storage high-water mark) beside JAX's ``temp_size_in_bytes``:
 at most twice JAX's, which holds because the loss runs on each rank's
-vocab shard.
+vocab shard. In the same subprocess no collective and no storage alive at
+that cell's peak has the embedding table's whole shape (the lookup reads
+each rank's vocab rows); llama4-scout-17b-a16e ``train_4k`` cut to 1 layer
+at grad_accum 16 gives every gradient in its param's shard (each layer's
+weights gathered where the layer runs); and musicgen-medium's temp grows
+from 2 to 4 layers by at most twice JAX's growth a layer (each checkpointed
+layer saves its rank's cut of the carry).
 
 A multi-pod cell where a rank holds fewer rows than micro-batches
 (``SCOUT``: llama4-scout-17b-a16e at full width cut to 1 layer, B=8,
@@ -345,6 +351,16 @@ def test_no_global_shape_propagation_is_counted(parity):
 # the 16x16 production mesh: the port's temporaries against JAX's
 PROD_LAYERS = 2
 PROD_TEMP_RATIO = 2.0
+# llama4-scout-17b-a16e train_4k at full width cut to 1 layer, at the full
+# model's grad_accum 16: the gradients that leave autograd.grad
+SCOUT_PROD = ("llama4-scout-17b-a16e", 1, 16)
+# musicgen-medium train_4k at 2 and 4 layers: the temp's growth a layer
+CARRY_ARCH, CARRY_LAYERS = "musicgen-medium", (2, 4)
+# JAX's temp_size_in_bytes of that arch's train_4k on 16x16 at 4 layers less
+# at 2, over 2: (4,281,807,368 - 4,253,594,120) / 2, compiled on a CPU by
+# PYTHONPATH=src JAX_PLATFORMS=cpu python tests/jax_dryrun_cell.py
+# musicgen-medium train_4k --layers N
+JAX_CARRY_BYTES_PER_LAYER = 14_106_624
 
 _JAX_PROD = """
 import dataclasses, json
@@ -360,34 +376,61 @@ print(json.dumps({"temp_bytes": mem.temp_size_in_bytes,
 """
 
 _PORT_PROD = """
-import dataclasses, json
+import dataclasses, json, torch
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.trace_analysis import TraceAnalysis
+from repro_torch.launch.trace_analysis import TraceAnalysis, _collective, _tensors
+from repro_torch.optim.adamw import OptConfig
+from repro_torch.runtime.train import TrainRunConfig
+
+
+class Shapes(TraceAnalysis):
+    # also records the shapes each collective takes and gives
+    def __init__(self):
+        super().__init__()
+        self.moved = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is not NotImplemented and not self._propagating and _collective(func):
+            self.moved += [list(t.shape) for t in _tensors((args, kwargs, out))]
+        return out
+
+
+def trace(arch, layers, accum=None):
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    trc = None if accum is None else TrainRunConfig(opt=OptConfig(), grad_accum=accum)
+    fn, kwargs = dryrun.build_cell(cfg, SHAPES["train_4k"], mesh, trc=trc)
+    with Shapes() as ta, dryrun.recording_grad_shards() as shards:
+        fn(*kwargs.values())
+    return cfg, kwargs, ta, shards
+
 
 dryrun.init_fake_world(256)
-cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=LAYERS)
-fn, kwargs = dryrun.build_cell(cfg, SHAPES["train_4k"], make_production_mesh(multi_pod=False))
-with TraceAnalysis() as ta:
-    fn(*kwargs.values())
-print(json.dumps({"temp_bytes": ta.stats.peak_live_bytes,
-                  "argument_bytes": dryrun.local_bytes(kwargs),
-                  "collective_counts": dict(ta.stats.collective_counts)}))
+mesh = make_production_mesh(multi_pod=False)
+cfg, kwargs, ta, _ = trace("qwen2-0.5b", LAYERS)
+table = [cfg.vocab_padded, cfg.d_model]
+out = {"temp_bytes": ta.stats.peak_live_bytes,
+       "argument_bytes": dryrun.local_bytes(kwargs),
+       "collective_counts": dict(ta.stats.collective_counts),
+       "table": table,
+       "table_moved": sum(m == table for m in ta.moved),
+       "table_at_peak": sum(list(made[1]) == table for _, _, made in ta._at_peak.values()),
+       "largest_moved": max(ta.moved, key=lambda m: torch.Size(m).numel())}
+_, _, _, out["scout"] = trace(*SCOUT_PROD)
+out["carry"] = {n: trace(CARRY_ARCH, n)[2].stats.peak_live_bytes for n in CARRY_LAYERS}
+print(json.dumps(out))
 """
 
 
-def test_train_4k_temporaries_within_twice_jax():
-    """The port's temporaries a device (the live storages' high-water mark
-    of the traced step) at most ``PROD_TEMP_RATIO`` times JAX's
-    ``temp_size_in_bytes`` on the same cell: the loss runs on each rank's
-    vocab shard (152,064 columns over model = 16), as XLA partitions
-    JAX's. Gathering the logits' vocab made the port's 379.1 GB against
-    JAX's 5.23. Both sides run at once (JAX's ``repro.launch.dryrun`` makes
-    512 host devices as it is imported; the mesh takes 256)."""
+@pytest.fixture(scope="module")
+def prod():
+    """``_JAX_PROD`` and ``_PORT_PROD`` at once (JAX's ``repro.launch.dryrun``
+    makes 512 host devices as it is imported; the mesh takes 256)."""
     def start(code, env_extra):
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env_extra)
-        return subprocess.Popen([sys.executable, "-c", code.replace("LAYERS", repr(PROD_LAYERS))],
+        return subprocess.Popen([sys.executable, "-c", _fill_prod(code)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                                 env=env, cwd=str(ROOT))
     procs = [start(_JAX_PROD, {"JAX_PLATFORMS": "cpu"}), start(_PORT_PROD, {})]
@@ -401,12 +444,68 @@ def test_train_4k_temporaries_within_twice_jax():
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-4000:]
     jax_out, port = (json.loads(o.strip().splitlines()[-1]) for o, _ in outs)
+    return {"jax": jax_out, "port": port}
+
+
+def _fill_prod(code: str) -> str:
+    return (code.replace("CARRY_LAYERS", repr(CARRY_LAYERS)).replace("CARRY_ARCH", repr(CARRY_ARCH))
+            .replace("SCOUT_PROD", repr(SCOUT_PROD)).replace("LAYERS", repr(PROD_LAYERS)))
+
+
+def test_train_4k_temporaries_within_twice_jax(prod):
+    """The port's temporaries a device (the live storages' high-water mark
+    of the traced step) at most ``PROD_TEMP_RATIO`` times JAX's
+    ``temp_size_in_bytes`` on the same cell: the loss runs on each rank's
+    vocab shard (152,064 columns over model = 16), as XLA partitions
+    JAX's. Gathering the logits' vocab made the port's 379.1 GB against
+    JAX's 5.23."""
+    jax_out, port = prod["jax"], prod["port"]
     print(f"qwen2-0.5b train_4k, {PROD_LAYERS} layers, 16x16: temporaries a device port "
           f"{port['temp_bytes'] / 1e9:.3f} GB, JAX {jax_out['temp_bytes'] / 1e9:.3f} GB "
           f"({port['temp_bytes'] / jax_out['temp_bytes']:.3f}x); collectives "
           f"{port['collective_counts']}")
     assert port["argument_bytes"] == jax_out["argument_bytes"]
     assert port["temp_bytes"] <= PROD_TEMP_RATIO * jax_out["temp_bytes"], (port, jax_out)
+
+
+def test_no_whole_embedding_table_moves_or_lives(prod):
+    """qwen2-0.5b's lookup reads each rank's vocab rows (the table's D
+    gathered, a sixteenth of the table), so no collective takes or gives a
+    tensor of the whole table's shape, and no storage of that shape is
+    alive at the temp's peak. Before, every rank gathered the table."""
+    port = prod["port"]
+    print(f"the largest tensor a collective took or gave: {port['largest_moved']}; "
+          f"the table {port['table']}")
+    assert port["table_moved"] == 0 and port["table_at_peak"] == 0, port
+
+
+def test_gradients_leave_autograd_in_their_params_shards(prod):
+    """llama4-scout-17b-a16e ``train_4k`` at full width cut to
+    ``SCOUT_PROD``'s layer and grad_accum on 16x16: every gradient that
+    leaves ``autograd.grad`` is no larger than its param's local shard,
+    each layer's reduce-scattered where the layer runs, and ``wo``'s
+    (40 heads on 16 model ranks) is sharded on ``model``. Before, the
+    stacked weights' gradients left it whole along their FSDP dim, and
+    ``wo``'s whole on ``model`` too."""
+    shards = prod["port"]["scout"]
+    print(f"{SCOUT_PROD}: {len(shards['larger'])} of {shards['leaves']} gradient leaves "
+          f"larger than their shard; wo's placements {shards['placements']['blocks/attn/wo']}")
+    assert shards["leaves"] > 0 and not shards["larger"], shards["larger"]
+    assert shards["placements"]["blocks/attn/wo"][1].startswith("S("), shards["placements"]
+
+
+def test_saved_carry_grows_per_layer_within_twice_jax(prod):
+    """``CARRY_ARCH`` ``train_4k`` on 16x16 at ``CARRY_LAYERS`` layers: the
+    port's temp grows per layer by at most twice JAX's per-layer growth
+    (``JAX_CARRY_BYTES_PER_LAYER``): each checkpointed layer saves its
+    rank's cut of the residual carry, not the whole (8, 4096, 1536) on
+    every model rank (100.7 MB a layer before)."""
+    carry = prod["port"]["carry"]
+    a, b = CARRY_LAYERS
+    per_layer = (carry[str(b)] - carry[str(a)]) / (b - a)
+    print(f"{CARRY_ARCH} train_4k temp: {carry}; {per_layer / 1e6:.2f} MB a layer "
+          f"(JAX {JAX_CARRY_BYTES_PER_LAYER / 1e6:.2f})")
+    assert per_layer <= 2 * JAX_CARRY_BYTES_PER_LAYER, carry
 
 
 # the archs of the cells' three subprocesses, about equal in trace time
@@ -471,14 +570,20 @@ def test_perf_variants_are_the_references_but_attention_dispatch(tmp_path):
 def card_check(out_dir: Path) -> None:
     """The port's side of these tests, without JAX (the card's machine has
     none, and its torch may differ from the tests'): the reckoning of the
-    parity cell and every cell on the production mesh. ``python
+    parity cell, every cell on the production mesh, and the production
+    cells' table, gradients and carry. ``python
     tests/test_torch_dryrun.py card-check <dir>``."""
     port_out = json.loads(_run(_fill(_PORT), {}, 600).strip().splitlines()[-1])
     test_no_global_shape_propagation_is_counted({"port": _keyed(port_out)})
     test_head_takes_each_ranks_own_rows({"port": _keyed(port_out)})
     test_every_cell_traces_on_the_production_mesh(out_dir)
+    prod_out = {"port": json.loads(_run(_fill_prod(_PORT_PROD), {}, 600).strip().splitlines()[-1])}
+    test_no_whole_embedding_table_moves_or_lives(prod_out)
+    test_gradients_leave_autograd_in_their_params_shards(prod_out)
+    test_saved_carry_grows_per_layer_within_twice_jax(prod_out)
     print(f"CARD_CHECK_OK: per-device FLOPs of the parity cell {port_out[str(LAYERS)]['flops']:.4e}"
-          f" (reckoned {_reckoned(LAYERS)['total']:.4e}); every cell ok or skipped")
+          f" (reckoned {_reckoned(LAYERS)['total']:.4e}); every cell ok or skipped; no whole "
+          f"table, every gradient in its shard, the saved carry cut")
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["card-check"]:

@@ -21,6 +21,15 @@ gradient in the logits' own placements; a vocab on no mesh dim bit-equal
 to one process. On the ``fake`` backend at tp = 16 the CE's forward and
 backward make three all-reduces of one f32 a row and no other
 collective.
+
+The same worlds hold the embedding lookup on a vocab-sharded table
+(``layers.vocab_sharded_lookup``, ``LOOKUP_CASES``): a (Vp, 6) table with
+its vocab on "model" and D on "data", or its vocab on ("data", "model"),
+Vp = 44 cut 22/22 or 15/15/14, tokens on every shard and one in the
+padding; the rows and the table's gradient within 1e-6 of one process's
+``table[tokens]`` and of ``jnp.take`` + ``jax.grad``, the gradient in the
+table's placements. On the ``fake`` backend (data 2, model 8) no
+collective of qwen2-0.5b's lookup moves more than a rank's slice.
 """
 import json
 import os
@@ -43,6 +52,7 @@ TIMEOUT_S = 240
 B, S = 4, 6
 LOSS_RTOL = 1e-6
 GRAD_TOL = 1e-6
+LOOKUP_TOL = 1e-6
 FAKE_TP = 16
 # name -> (world, mesh (data, model), the vocab's mesh axes, Vp, vocab size)
 CASES = {
@@ -55,6 +65,14 @@ CASES = {
     "1x4_empty_shard": (4, (1, 4), "model", 9, 7),
     "1x3_uneven": (3, (1, 3), "model", 44, 40),
     "1x3_last_shard_padded": (3, (1, 3), "model", 44, 30),
+}
+# the embedding lookup on a vocab-sharded table (Vp, LOOKUP_D):
+# name -> (world, mesh (data, model), the vocab's mesh axes, the D's, Vp, vocab size)
+LOOKUP_D = 6
+LOOKUP_CASES = {
+    "lookup_2x2": (4, (2, 2), "model", "data", 44, 40),
+    "lookup_2x2_vocab_data_model": (4, (2, 2), ("data", "model"), None, 44, 30),
+    "lookup_1x3_uneven": (3, (1, 3), "model", "data", 44, 40),
 }
 WORLDS = sorted({c[0] for c in CASES.values()})
 
@@ -106,6 +124,49 @@ def single_ce(inputs: dict, vocab: int) -> dict:
     return {"loss": loss.detach().numpy(), "grad": x.grad.numpy()}
 
 
+def _lookup_inputs(vp: int, vocab: int) -> dict:
+    """A table, tokens that fall on every vocab shard, one of them in the
+    padding (a row past ``vocab``, which the table holds), and weights."""
+    rng = np.random.default_rng(vp * 100 + vocab + 7)
+    tokens = rng.permutation((np.arange(B * S) * 7) % vocab).reshape(B, S)
+    tokens[1, 2] = vp - 2                         # a padded row
+    return {"table": rng.standard_normal((vp, LOOKUP_D)).astype(np.float32),
+            "tokens": tokens.astype(np.int32),
+            "weights": rng.uniform(0.5, 1.5, (B, S, LOOKUP_D)).astype(np.float32)}
+
+
+def sharded_lookup(mesh, vocab_axes, d_axes, inputs: dict) -> dict:
+    """The embedding rows of ``inputs``' tokens from the table placed on
+    ``mesh`` (its vocab on ``vocab_axes``, its D on ``d_axes``; the tokens'
+    rows on "data" where the vocab leaves it free), and the gradient of
+    the weighted sum of the rows: each whole, and the gradient's
+    placements."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.layers import vocab_sharded_lookup
+    from repro_torch.parallel.mesh import P, to_placements
+    x = distribute_tensor(torch.as_tensor(inputs["table"]), mesh,
+                          to_placements(mesh, P(vocab_axes, d_axes), 2),
+                          src_data_rank=None).requires_grad_(True)
+    pl = to_placements(mesh, P(_rows_axis(tuple(mesh.shape), vocab_axes), None, None), 3)
+    tokens, weights = (distribute_tensor(torch.as_tensor(inputs[k]), mesh, pl,
+                                         src_data_rank=None) for k in ("tokens", "weights"))
+    rows = vocab_sharded_lookup(x, tokens)
+    (grad,) = torch.autograd.grad((rows * weights).sum().full_tensor(), x)
+    return {"rows": rows.full_tensor().detach().numpy(), "grad": grad.full_tensor().numpy(),
+            "grad_placements": str(tuple(grad.placements)),
+            "placements": str(tuple(x.placements)),
+            "rows_placements": str(tuple(rows.placements)),
+            "tokens_placements": str(tuple(tokens.placements))}
+
+
+def single_lookup(inputs: dict) -> dict:
+    """The same in one process, on plain tensors."""
+    x = torch.as_tensor(inputs["table"]).clone().requires_grad_(True)
+    rows = x[torch.as_tensor(inputs["tokens"])]
+    (rows * torch.as_tensor(inputs["weights"])).sum().backward()
+    return {"rows": rows.detach().numpy(), "grad": x.grad.numpy()}
+
+
 def worker(rank: int, tmp: Path) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -119,6 +180,11 @@ def worker(rank: int, tmp: Path) -> None:
             continue
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
         out[name] = sharded_ce(mesh, vocab_axes, _inputs(vp, vocab), vocab)
+    for name, (w, shape, vocab_axes, d_axes, vp, vocab) in LOOKUP_CASES.items():
+        if w != world:
+            continue
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        out[name] = sharded_lookup(mesh, vocab_axes, d_axes, _lookup_inputs(vp, vocab))
     if rank == 0:
         torch.save(out, tmp / "results.pt")
     dist.barrier()
@@ -194,6 +260,53 @@ def test_sharded_ce_matches_jax(worlds, name):
     check_case(worlds, name, _jax_ce(_inputs(vp, vocab), vocab))
 
 
+def _jax_lookup(inputs: dict) -> dict:
+    import jax
+    import jax.numpy as jnp
+    tokens, weights = jnp.asarray(inputs["tokens"]), jnp.asarray(inputs["weights"])
+    table = jnp.asarray(inputs["table"])
+    rows = jnp.take(table, tokens, axis=0)
+    grad = jax.grad(lambda t: (jnp.take(t, tokens, axis=0) * weights).sum())(table)
+    return {"rows": np.asarray(rows), "grad": np.asarray(grad)}
+
+
+def check_lookup(out: dict, name: str, ref: dict) -> None:
+    """One lookup case of the worlds against ``ref`` (one process or JAX):
+    the rows within LOOKUP_TOL of their largest value, the table's gradient
+    within LOOKUP_TOL of its largest value and in the table's placements,
+    the rows in the tokens' (where the vocab leaves their mesh dim free)."""
+    got = out[name]
+    for key in ("rows", "grad"):
+        scale = np.abs(ref[key]).max()
+        assert scale > 0 and np.abs(got[key] - ref[key]).max() <= LOOKUP_TOL * scale, key
+    assert got["grad_placements"] == got["placements"], got
+    if LOOKUP_CASES[name][2] == "model":
+        assert got["rows_placements"] == got["tokens_placements"], got
+
+
+@pytest.mark.parametrize("name", list(LOOKUP_CASES))
+def test_vocab_sharded_lookup_matches_single_process(worlds, name):
+    check_lookup(worlds, name, single_lookup(_lookup_inputs(*LOOKUP_CASES[name][4:])))
+
+
+@pytest.mark.parametrize("name", list(LOOKUP_CASES))
+def test_vocab_sharded_lookup_matches_jax(worlds, name):
+    """Against ``jnp.take`` and ``jax.grad`` on the same inputs."""
+    check_lookup(worlds, name, _jax_lookup(_lookup_inputs(*LOOKUP_CASES[name][4:])))
+
+
+def test_lookup_tokens_fall_on_every_shard():
+    """Every vocab shard holds a token in each lookup case, and one token
+    reads a padded row."""
+    for name, (_, shape, vocab_axes, _, vp, vocab) in LOOKUP_CASES.items():
+        axes = (vocab_axes,) if isinstance(vocab_axes, str) else vocab_axes
+        parts = int(np.prod([dict(zip(("data", "model"), shape))[a] for a in axes]))
+        piece = -(-vp // parts)
+        tokens = _lookup_inputs(vp, vocab)["tokens"].ravel()
+        assert {int(t) // piece for t in tokens} == set(range(parts)), name
+        assert (tokens >= vocab).sum() == 1, name
+
+
 def test_labels_fall_on_every_shard():
     """Every shard that holds a label slot holds a label in each case."""
     for name, (_, shape, vocab_axes, vp, vocab) in CASES.items():
@@ -227,7 +340,38 @@ with TraceAnalysis() as fwd:
     loss = softmax_cross_entropy(x, labels, V)
 with TraceAnalysis() as bwd:
     (grad,) = torch.autograd.grad(loss, x, g)
-print(json.dumps({"fwd": dict(fwd.stats.collective_bytes),
+# the lookup of qwen2-0.5b's table (vocab on model, D on data) on a (2, TP / 2) mesh
+from repro_torch.launch.trace_analysis import _collective, _tensors
+from repro_torch.models.layers import vocab_sharded_lookup
+from repro_torch.parallel.mesh import P, to_placements
+
+
+class Moved(TraceAnalysis):
+    def __init__(self):
+        super().__init__()
+        self.moved = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is not NotImplemented and not self._propagating and _collective(func):
+            self.moved.append([_collective(func)] + [list(t.shape) for t in _tensors(out)])
+        return out
+
+
+D = 896
+mesh2 = make_mesh((2, TP // 2), ("data", "model"))
+local = torch.empty(VP // (TP // 2), D // 2, dtype=torch.bfloat16, device="meta")
+table = DTensor.from_local(local, mesh2, to_placements(mesh2, P("model", "data"), 2),
+                           run_check=False).requires_grad_(True)
+tokens = DTensor.from_local(torch.zeros(B // 2, S, dtype=torch.long, device="meta"), mesh2,
+                            to_placements(mesh2, P("data", None), 2), run_check=False)
+with Moved() as lk:
+    rows = vocab_sharded_lookup(table, tokens)
+    (tgrad,) = torch.autograd.grad(rows, table, torch.ones_like(rows))
+print(json.dumps({"lookup": {"moved": lk.moved, "slice": [VP // (TP // 2), D],
+                             "rows": [B // 2, S, D], "grad": list(tgrad.to_local().shape),
+                             "grad_placements": str(tgrad.placements)},
+                  "fwd": dict(fwd.stats.collective_bytes),
                   "fwd_counts": dict(fwd.stats.collective_counts),
                   "bwd": dict(bwd.stats.collective_bytes),
                   "loss": [list(loss.shape), str(loss.placements)],
@@ -236,21 +380,42 @@ print(json.dumps({"fwd": dict(fwd.stats.collective_bytes),
 """
 
 
-def test_sharded_ce_collectives_on_the_fake_backend():
-    """qwen2-0.5b's padded vocab on tp = 16 (meta shards, ``fake`` group):
-    three all-reduces of ``rows x 4`` bytes in the forward, none in the
-    backward, no all-gather; the loss in the rows' placements, the
-    gradient vocab-sharded."""
+@pytest.fixture(scope="module")
+def fake():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _FAKE.replace("TP_", str(FAKE_TP))],
                          capture_output=True, text=True, timeout=300, env=env, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_sharded_ce_collectives_on_the_fake_backend(fake):
+    """qwen2-0.5b's padded vocab on tp = 16 (meta shards, ``fake`` group):
+    three all-reduces of ``rows x 4`` bytes in the forward, none in the
+    backward, no all-gather; the loss in the rows' placements, the
+    gradient vocab-sharded."""
+    res = fake
     assert res["fwd"] == {"all-reduce": 3 * res["rows"] * 4}, res
     assert res["fwd_counts"] == {"all-reduce": 3}, res
     assert res["bwd"] == {}, res
     assert res["loss"] == [[8, 512], "(Shard(dim=0), Replicate())"], res
     assert res["grad"] == [[8, 512, 152064 // FAKE_TP], "(Shard(dim=0), Shard(dim=2))"], res
+
+
+def test_vocab_sharded_lookup_collectives_on_the_fake_backend(fake):
+    """qwen2-0.5b's table (152,064 x 896, bf16) on a (data 2, model 8) mesh of
+    the ``fake`` group: the lookup gathers the rank's vocab rows (a table's
+    eighth, D whole), all-reduces the rows over model, and its backward
+    reduce-scatters the slice's gradient over data into the table's
+    placements. No collective takes or gives more than the slice or the
+    rows; the whole table never moves."""
+    lk = fake["lookup"]
+    kinds = {m[0] for m in lk["moved"]}
+    assert {"all-gather", "all-reduce", "reduce-scatter"} <= kinds, lk["moved"]
+    biggest = max(int(np.prod(m[1])) for m in lk["moved"] if len(m) > 1)
+    assert biggest <= max(int(np.prod(lk["slice"])), int(np.prod(lk["rows"]))), lk
+    assert lk["grad"] == [lk["slice"][0], lk["slice"][1] // 2], lk
+    assert lk["grad_placements"] == "(Shard(dim=1), Shard(dim=0))", lk
 
 
 def card_check(tmp: Path) -> None:
@@ -260,9 +425,18 @@ def card_check(tmp: Path) -> None:
     out = run_worlds(tmp)
     for name, (_, _, _, vp, vocab) in CASES.items():
         check_case(out, name, single_ce(_inputs(vp, vocab), vocab))
-    test_sharded_ce_collectives_on_the_fake_backend()
-    print(f"CARD_CHECK_OK torch {torch.__version__}: {len(CASES)} sharded CE cases on "
-          f"gloo worlds of {WORLDS} ranks equal one process; 3 all-reduces at tp {FAKE_TP}")
+    for name in LOOKUP_CASES:
+        check_lookup(out, name, single_lookup(_lookup_inputs(*LOOKUP_CASES[name][4:])))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-c", _FAKE.replace("TP_", str(FAKE_TP))],
+                         capture_output=True, text=True, timeout=300, env=env, cwd=str(ROOT))
+    assert run.returncode == 0, run.stderr[-3000:]
+    fake_out = json.loads(run.stdout.strip().splitlines()[-1])
+    test_sharded_ce_collectives_on_the_fake_backend(fake_out)
+    test_vocab_sharded_lookup_collectives_on_the_fake_backend(fake_out)
+    print(f"CARD_CHECK_OK torch {torch.__version__}: {len(CASES)} sharded CE cases and "
+          f"{len(LOOKUP_CASES)} lookups on gloo worlds of {WORLDS} ranks equal one process; "
+          f"3 all-reduces at tp {FAKE_TP}; the lookup moves no whole table")
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:

@@ -107,7 +107,7 @@ def test_the_hybrids_shared_block_is_not_rematted():
     h = torch.randn((B, S, cfg.d_model), generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         with _CountDots() as mamba:
-            tt._apply_mamba_block(tt._layer(params["blocks"], 0), h, cfg, rc)
+            tt._apply_mamba_block(tt._layers(params["blocks"], cfg.n_layers)[0], h, cfg, rc)
         with _CountDots() as shared:
             tt._apply_attn_block(params["shared_block"], h, cfg, rc,
                                  torch.arange(S)[None, :])

@@ -114,7 +114,7 @@ def test_the_vlms_cross_blocks_are_not_rematted():
     batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, seed=4).items()}
     h = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(1))
     with torch.no_grad(), _CountDots() as self_block:
-        tt._apply_attn_block(tt._layer(params["blocks"], 0), h, cfg, rc,
+        tt._apply_attn_block(tt._layers(params["blocks"], cfg.n_layers)[0], h, cfg, rc,
                              torch.arange(32)[None, :])
     runs = []
     for r in (rc, rc.replace(remat=True, remat_policy="full")):
@@ -126,9 +126,11 @@ def test_the_vlms_cross_blocks_are_not_rematted():
     assert torch.equal(loss1, loss0)
     for a, b in zip(tree_leaves(g1), tree_leaves(g0)):
         assert torch.equal(a, b)
-    cast = tt._cast_params(params, rc.replace(compute_dtype=torch.bfloat16))
-    assert cast["cross_blocks"]["gate"].dtype == torch.float32
-    assert cast["cross_blocks"]["attn"]["wq"].dtype == torch.bfloat16
+    # a cross block's leaves as the block takes them (``_use``, where it runs)
+    cast = tt._use("", tt._layers(params["cross_blocks"], tt._n_cross(cfg))[0],
+                   rc.replace(compute_dtype=torch.bfloat16))
+    assert cast["gate"].dtype == torch.float32
+    assert cast["attn"]["wq"].dtype == torch.bfloat16
 
 
 def test_audio_embed_takes_zeros_and_is_decayed():
