@@ -237,10 +237,14 @@ Phases; any failure exits non-zero and prints no result line:
    beside JAX's (``JAX_DRYRUN_FULL_TEMP_BYTES``, compiled on a CPU) with
    the storages that hold its peak, and its arguments + temp must fit
    ``DRYRUN_DEVICE_BYTES``. llama4-scout-17b-a16e ``train_4k`` cut to 2
-   layers at the full model's grad_accum 16 on 2x16x16 (``DRYRUN_MULTI_POD``)
-   and on 16x16 (``DRYRUN_SCOUT_CUT``), each held to JAX's FLOPs a device
-   of the same cut; no train cell's gradient may leave ``autograd.grad``
-   larger than its param's shard (each cell's ``grad_shards``).
+   layers at the full model's grad_accum 16 on 2x16x16 (``DRYRUN_MULTI_POD``:
+   FLOPs and temp a device at most JAX's of the same cut) and on 16x16
+   (``DRYRUN_SCOUT_CUT``: FLOPs), and llama4-scout-17b-a16e ``train_4k``
+   at full depth on both meshes (``DRYRUN_SCOUT_FULL``: temp a device at
+   most JAX's, ``JAX_DRYRUN_SCOUT_FULL_TEMP_BYTES``); no train cell's
+   gradient may leave ``autograd.grad`` larger than its param's shard (each
+   cell's ``grad_shards``). The traces start in the background, niced and
+   without the card, right after [1], and [11] waits for them.
 12. A ``{"kernels": [...]}`` line (each kernel's ``launches`` is the sum
    over the served models' prefills, ``launches_by_arch`` per model,
    ``decode_launches_per_step_by_arch`` where a decode step launches it,
@@ -396,7 +400,7 @@ DRYRUN_FULL = ("qwen2-0.5b", "train_4k")          # at full depth
 DRYRUN_SEGMENT_SHAPE = "prefill_32k"               # each other family, one segment
 DRYRUN_SEGMENT_ARCHS = ("gemma-7b", "qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-1.2b",
                         "musicgen-medium", "llama-3.2-vision-11b")
-DRYRUN_TIMEOUT_S = 420
+DRYRUN_TIMEOUT_S = 900            # from their start after [1] to the end of [11]
 DRYRUN_DEVICE_BYTES = 79e9        # the card's usable memory: arguments + temp of DRYRUN_FULL
 # JAX's temp_size_in_bytes of DRYRUN_FULL at full depth on the 16x16 mesh,
 # compiled on a CPU by the JAX package's own dry run (PYTHONPATH=src python -m
@@ -425,6 +429,13 @@ DRYRUN_SCOUT_CUT = ("llama4-scout-17b-a16e", "train_4k", 2, 16)
 DRYRUN_SCOUT_CUT_FLOPS_RATIO = 1.02
 JAX_DRYRUN_SCOUT_CUT_FLOPS = 5.148055175168e13
 JAX_DRYRUN_SCOUT_CUT_TEMP_BYTES = 6608617752
+# llama4-scout-17b-a16e train_4k at full depth on 16x16 and 2x16x16: the port's
+# temp a device at most JAX's temp_size_in_bytes of the same cell, compiled on
+# a CPU by the JAX package's dry run (PYTHONPATH=src python -m
+# repro.launch.dryrun --arch llama4-scout-17b-a16e --shape train_4k --mesh
+# both), in GB to the hundredth as its table gives them
+DRYRUN_SCOUT_FULL = ("llama4-scout-17b-a16e", "train_4k")
+JAX_DRYRUN_SCOUT_FULL_TEMP_BYTES = {"pod16x16": 10.81e9, "pod2x16x16": 11.23e9}
 ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_MORE = 10, 5, 2
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks by operand type
@@ -1583,7 +1594,8 @@ def train_and_check(phase: str, cfg, label: str, *, steps: int, rc,
           f"{rc.ssd_chunk}, peak lr {lr:g}: {steps} steps of {TRAIN_BATCH} x "
           f"{TRAIN_LEN} tokens: median step (2-{steps}) {tr['median_step_ms']:.3f} ms, "
           f"{tr['tokens_per_s']:.1f} trained tokens/s, max_memory_allocated "
-          f"{tr['max_memory_allocated']} B", flush=True)
+          f"{tr['max_memory_allocated']} B; losses {[m['loss'] for m in tr['metrics']]}",
+          flush=True)
     losses = [m["loss"] for m in tr["metrics"]]
     if losses_out is not None:
         losses_out.extend(losses)
@@ -1597,6 +1609,13 @@ def train_and_check(phase: str, cfg, label: str, *, steps: int, rc,
     del tr
     torch.cuda.empty_cache()
     return per_step
+
+
+def _digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes: two runs'
+    tokens compared bit for bit from their logs."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
 
 
 def cut_depth(arch: str, layers: Optional[int]):
@@ -2071,59 +2090,104 @@ def check_k2_local_heads(gen) -> dict:
     return at
 
 
-def dry_run_cells() -> list:
-    """Phase 11: ``python -m repro_torch.launch.dryrun`` in a subprocess on
-    the ``fake`` backend (256 ranks, meta tensors, nothing launched):
-    ``DRYRUN_FULL`` at full depth, then ``DRYRUN_SEGMENT_SHAPE`` of each of
-    ``DRYRUN_SEGMENT_ARCHS`` cut to one segment, then ``DRYRUN_MULTI_POD``
-    on 512 ranks, held to JAX's FLOPs and temp of the same cut, and
-    ``DRYRUN_SCOUT_CUT`` on 256, held to JAX's FLOPs. Prints each cell's
-    per-device numbers; an erring cell, or a train cell whose gradient
-    leaves ``autograd.grad`` larger than its param's shard, fails the run."""
+def _dry_run_args() -> list:
+    """Phase 11's command lines of ``python -m repro_torch.launch.dryrun``."""
+    arch, shape, layers, accum = DRYRUN_MULTI_POD
+    cut = DRYRUN_SCOUT_CUT
+    return [["--arch", DRYRUN_FULL[0], "--shape", DRYRUN_FULL[1]],
+            ["--arch", ",".join(DRYRUN_SEGMENT_ARCHS), "--shape", DRYRUN_SEGMENT_SHAPE,
+             "--segment"],
+            ["--arch", arch, "--shape", shape, "--mesh", "multi", "--layers", str(layers),
+             "--grad-accum", str(accum)],
+            ["--arch", cut[0], "--shape", cut[1], "--mesh", "single", "--layers",
+             str(cut[2]), "--grad-accum", str(cut[3])]] + [
+            ["--arch", DRYRUN_SCOUT_FULL[0], "--shape", DRYRUN_SCOUT_FULL[1], "--mesh", m]
+            for m in ("single", "multi")]
+
+
+def start_dry_run() -> dict:
+    """Phase 11's traces, each a subprocess started at once on the ``fake``
+    backend (meta tensors, nothing launched), niced and with no card visible,
+    their output in a temporary directory; they are killed and the
+    directory removed when this script exits."""
+    import atexit
+    import shutil
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    runs = []
+    for k, args in enumerate(_dry_run_args()):
+        log = open(Path(out) / f"run{k}.log", "w")
+        proc = subprocess.Popen(["nice", "-n", "19", sys.executable, "-m",
+                                 "repro_torch.launch.dryrun", *args, "--out",
+                                 str(Path(out) / "cells")], stdout=log,
+                                stderr=subprocess.STDOUT, cwd=str(ROOT), env=env)
+        runs.append((args, proc, log))
+
+    def stop():
+        for _, proc, log in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(out, ignore_errors=True)
+    atexit.register(stop)
+    return {"out": Path(out), "runs": runs, "t0": time.perf_counter()}
+
+
+def _peak_holders(ma: dict) -> str:
+    return "; ".join(f"{h['bytes'] / 1e9:.3f} GB {h['op']} {h['dtype']}{h['shape']} "
+                     f"x{h['count']}" for h in ma["peak_holders"][:3])
+
+
+def dry_run_cells(started: dict) -> list:
+    """Phase 11: waits for ``start_dry_run``'s traces: ``DRYRUN_FULL`` at
+    full depth, ``DRYRUN_SEGMENT_SHAPE`` of each of ``DRYRUN_SEGMENT_ARCHS``
+    cut to one segment, ``DRYRUN_MULTI_POD`` on 512 ranks, held to JAX's
+    FLOPs and temp of the same cut, ``DRYRUN_SCOUT_CUT`` on 256, held to
+    JAX's FLOPs, and ``DRYRUN_SCOUT_FULL`` on both, held to JAX's temp.
+    Prints each cell's per-device numbers; an erring cell, or a train cell
+    whose gradient leaves ``autograd.grad`` larger than its param's shard,
+    fails the run."""
     cells = []
     arch, shape, layers, accum = DRYRUN_MULTI_POD
     cut = DRYRUN_SCOUT_CUT
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
-        for args in (["--arch", DRYRUN_FULL[0], "--shape", DRYRUN_FULL[1]],
-                     ["--arch", ",".join(DRYRUN_SEGMENT_ARCHS), "--shape",
-                      DRYRUN_SEGMENT_SHAPE, "--segment"],
-                     ["--arch", arch, "--shape", shape, "--mesh", "multi", "--layers",
-                      str(layers), "--grad-accum", str(accum)],
-                     ["--arch", cut[0], "--shape", cut[1], "--mesh", "single", "--layers",
-                      str(cut[2]), "--grad-accum", str(cut[3])]):
-            t0 = time.perf_counter()
-            run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
-                                  "--out", out], capture_output=True, text=True,
-                                 timeout=DRYRUN_TIMEOUT_S, cwd=str(ROOT),
-                                 env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-            print(f"[11] python -m repro_torch.launch.dryrun {' '.join(args)}: exit "
-                  f"{run.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
-            _check(run.returncode == 0, f"the dry run failed:\n{run.stdout[-3000:]}\n"
-                   f"{run.stderr[-3000:]}")
-        for path in sorted(Path(out).glob("*.json")):
-            c = json.loads(path.read_text())
-            _check(c["status"] == "ok", f"dry-run cell {path.stem}: {c}")
-            per, ma, rf = c["trace_per_device"], c["memory_analysis"], c["roofline"]
-            print(f"[11] {c['arch']} x {c['shape']} ({c['n_layers']} layers) on {c['mesh']} "
-                  f"({c['n_chips']} ranks, traced in {c['trace_s']} s): per device "
-                  f"{per['flops']:.4e} FLOPs, collectives "
-                  f"{json.dumps({k: round(v) for k, v in per['collective_bytes'].items()})} B, "
-                  f"arguments {ma['argument_bytes']} B, temp {ma['temp_bytes']} B; "
-                  f"roofline terms (arithmetic on the data-sheet peaks) compute "
-                  f"{rf['compute_s'] * 1e3:.3f} ms, memory {rf['memory_s'] * 1e3:.3f} ms, "
-                  f"collective {rf['collective_s'] * 1e3:.3f} ms, dominant {rf['dominant']}; "
-                  f"useful_flops_ratio {c['useful_flops_ratio']:.3f}", flush=True)
-            shards = c.get("grad_shards")
-            if shards:
-                print(f"[11] {path.stem}: {len(shards['larger'])} of {shards['leaves']} "
-                      f"gradient leaves left autograd.grad larger than their param's shard"
-                      + "".join(f"; {g['leaf']} {g['grad']} (shard {g['shard']})"
-                                for g in shards["larger"]), flush=True)
-                _check(not shards["larger"], f"{path.stem}: gradients larger than their "
-                       f"shard: {shards['larger']}")
-            cells.append(c)
-    _check(len(cells) == 3 + len(DRYRUN_SEGMENT_ARCHS), f"{len(cells)} dry-run cells")
-    _check(sum(1 for c in cells if c.get("grad_shards")) == 3, "three train cells")
+    deadline = started["t0"] + DRYRUN_TIMEOUT_S
+    for args, proc, log in started["runs"]:
+        try:
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.flush()
+        print(f"[11] python -m repro_torch.launch.dryrun {' '.join(args)}: exit {rc}",
+              flush=True)
+        _check(rc == 0, f"the dry run failed:\n{Path(log.name).read_text()[-3000:]}")
+    print(f"[11] the traces ended by {time.perf_counter() - started['t0']:.1f} s after their "
+          f"start (after [1])", flush=True)
+    for path in sorted((started["out"] / "cells").glob("*.json")):
+        c = json.loads(path.read_text())
+        _check(c["status"] == "ok", f"dry-run cell {path.stem}: {c}")
+        per, ma, rf = c["trace_per_device"], c["memory_analysis"], c["roofline"]
+        print(f"[11] {c['arch']} x {c['shape']} ({c['n_layers']} layers) on {c['mesh']} "
+              f"({c['n_chips']} ranks, traced in {c['trace_s']} s): per device "
+              f"{per['flops']:.4e} FLOPs, collectives "
+              f"{json.dumps({k: round(v) for k, v in per['collective_bytes'].items()})} B, "
+              f"arguments {ma['argument_bytes']} B, temp {ma['temp_bytes']} B; "
+              f"roofline terms (arithmetic on the data-sheet peaks) compute "
+              f"{rf['compute_s'] * 1e3:.3f} ms, memory {rf['memory_s'] * 1e3:.3f} ms, "
+              f"collective {rf['collective_s'] * 1e3:.3f} ms, dominant {rf['dominant']}; "
+              f"useful_flops_ratio {c['useful_flops_ratio']:.3f}", flush=True)
+        shards = c.get("grad_shards")
+        if shards:
+            print(f"[11] {path.stem}: {len(shards['larger'])} of {shards['leaves']} "
+                  f"gradient leaves left autograd.grad larger than their param's shard"
+                  + "".join(f"; {g['leaf']} {g['grad']} (shard {g['shard']})"
+                            for g in shards["larger"]), flush=True)
+            _check(not shards["larger"], f"{path.stem}: gradients larger than their "
+                   f"shard: {shards['larger']}")
+        cells.append(c)
+    _check(len(cells) == 5 + len(DRYRUN_SEGMENT_ARCHS), f"{len(cells)} dry-run cells")
+    _check(sum(1 for c in cells if c.get("grad_shards")) == 5, "five train cells")
     full = next(c for c in cells if (c["arch"], c["shape"]) == DRYRUN_FULL)
     ma = full["memory_analysis"]
     print(f"[11] {DRYRUN_FULL[0]} x {DRYRUN_FULL[1]} at full depth, a device: temp "
@@ -2131,12 +2195,10 @@ def dry_run_cells() -> list:
           f"{JAX_DRYRUN_FULL_TEMP_BYTES / 1e9:.2f} GB; "
           f"{ma['temp_bytes'] / JAX_DRYRUN_FULL_TEMP_BYTES:.3f}x), arguments + temp "
           f"{ma['peak_bytes_per_device'] / 1e9:.3f} GB (limit {DRYRUN_DEVICE_BYTES / 1e9:g} GB); "
-          f"held at the peak by " + "; ".join(
-              f"{h['bytes'] / 1e9:.3f} GB {h['op']} {h['dtype']}{h['shape']} x{h['count']}"
-              for h in ma["peak_holders"][:3]), flush=True)
+          f"held at the peak by {_peak_holders(ma)}", flush=True)
     _check(ma["peak_bytes_per_device"] <= DRYRUN_DEVICE_BYTES,
            f"{DRYRUN_FULL}: {ma['peak_bytes_per_device']} B a device")
-    pod = next(c for c in cells if c["mesh"] == "pod2x16x16")
+    pod = next(c for c in cells if c["mesh"] == "pod2x16x16" and c["n_layers"] == layers)
     flops, ma = pod["trace_per_device"]["flops"], pod["memory_analysis"]
     print(f"[11] {arch} x {shape} on pod2x16x16 cut to {layers} layers at grad_accum "
           f"{accum}, a device: FLOPs {flops:.4e} (JAX's hlo_analysis of the same cut, "
@@ -2144,15 +2206,16 @@ def dry_run_cells() -> list:
           f"{flops / JAX_DRYRUN_MULTI_POD_FLOPS:.3f}x), temp {ma['temp_bytes'] / 1e9:.3f} GB "
           f"(JAX's {JAX_DRYRUN_MULTI_POD_TEMP_BYTES / 1e9:.3f} GB; "
           f"{ma['temp_bytes'] / JAX_DRYRUN_MULTI_POD_TEMP_BYTES:.3f}x), arguments "
-          f"{ma['argument_bytes']} B (JAX's {JAX_DRYRUN_MULTI_POD_ARGUMENT_BYTES} B)",
-          flush=True)
+          f"{ma['argument_bytes']} B (JAX's {JAX_DRYRUN_MULTI_POD_ARGUMENT_BYTES} B); held "
+          f"at the peak by {_peak_holders(ma)}", flush=True)
     _check(flops <= JAX_DRYRUN_MULTI_POD_FLOPS,
            f"{DRYRUN_MULTI_POD}: {flops:.4e} FLOPs a device, above JAX's")
-    _check(ma["temp_bytes"] <= 2 * JAX_DRYRUN_MULTI_POD_TEMP_BYTES,
-           f"{DRYRUN_MULTI_POD}: temp {ma['temp_bytes']} B, above twice JAX's")
+    _check(ma["temp_bytes"] <= JAX_DRYRUN_MULTI_POD_TEMP_BYTES,
+           f"{DRYRUN_MULTI_POD}: temp {ma['temp_bytes']} B, above JAX's")
     _check(ma["argument_bytes"] == JAX_DRYRUN_MULTI_POD_ARGUMENT_BYTES,
            f"{DRYRUN_MULTI_POD}: arguments {ma['argument_bytes']} B, not JAX's")
-    single = next(c for c in cells if c["mesh"] == "pod16x16" and c["arch"] == cut[0])
+    single = next(c for c in cells if c["mesh"] == "pod16x16" and c["arch"] == cut[0]
+                  and c["n_layers"] == cut[2])
     flops, ma = single["trace_per_device"]["flops"], single["memory_analysis"]
     print(f"[11] {cut[0]} x {cut[1]} on pod16x16 cut to {cut[2]} layers at grad_accum "
           f"{cut[3]}, a device: FLOPs {flops:.4e} (JAX's hlo_analysis of the same cut, "
@@ -2161,11 +2224,21 @@ def dry_run_cells() -> list:
           f"temp {ma['temp_bytes'] / 1e9:.3f} GB (JAX's "
           f"{JAX_DRYRUN_SCOUT_CUT_TEMP_BYTES / 1e9:.3f} GB; "
           f"{ma['temp_bytes'] / JAX_DRYRUN_SCOUT_CUT_TEMP_BYTES:.3f}x); held at the peak by "
-          + "; ".join(f"{h['bytes'] / 1e9:.3f} GB {h['op']} {h['dtype']}{h['shape']} "
-                      f"x{h['count']}" for h in ma["peak_holders"][:3]), flush=True)
+          f"{_peak_holders(ma)}", flush=True)
     _check(flops <= DRYRUN_SCOUT_CUT_FLOPS_RATIO * JAX_DRYRUN_SCOUT_CUT_FLOPS,
            f"{DRYRUN_SCOUT_CUT}: {flops:.4e} FLOPs a device, above "
            f"{DRYRUN_SCOUT_CUT_FLOPS_RATIO}x JAX's")
+    for mesh, jax_temp in JAX_DRYRUN_SCOUT_FULL_TEMP_BYTES.items():
+        c = next(c for c in cells if (c["arch"], c["shape"]) == DRYRUN_SCOUT_FULL
+                 and c["mesh"] == mesh and c["n_layers"] != cut[2])
+        ma = c["memory_analysis"]
+        print(f"[11] {c['arch']} x {c['shape']} on {mesh} at full depth ({c['n_layers']} "
+              f"layers), a device: temp {ma['temp_bytes'] / 1e9:.3f} GB (JAX's "
+              f"{jax_temp / 1e9:.2f} GB; {ma['temp_bytes'] / jax_temp:.3f}x), FLOPs "
+              f"{c['trace_per_device']['flops']:.4e}; held at the peak by {_peak_holders(ma)}",
+              flush=True)
+        _check(ma["temp_bytes"] <= jax_temp,
+               f"{DRYRUN_SCOUT_FULL} on {mesh}: temp {ma['temp_bytes']} B, above JAX's")
     return cells
 
 
@@ -2462,6 +2535,7 @@ def main() -> int:
         for line in res.ptxas.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    {res.name}: {line.strip()}")
+    dry_run = start_dry_run()
     t_phase = _phase_done(1, t_phase)
 
     # 2. K1 and K2 against their plain versions, and their times
@@ -2488,8 +2562,8 @@ def main() -> int:
               f"{res['prefill_ms']:.3f} ms, decode {res['decode_ms_per_step']:.3f} ms/step, "
               f"{res['tokens_per_s']:.1f} generated tokens/s, "
               f"max_memory_allocated {res['max_memory_allocated']} B; launches: "
-              f"prefill {res['prefill_launches']}, request {res['request_launches']}",
-              flush=True)
+              f"prefill {res['prefill_launches']}, request {res['request_launches']}; "
+              f"tokens sha256 {_digest(res['tokens'])}", flush=True)
         expect, per_step = expected_launches(cfg), expected_decode_launches(cfg)
         expect_request = {k: n + DECODE_STEPS * per_step[k] for k, n in expect.items()}
         _check(res["prefill_launches"] == expect,
@@ -2550,7 +2624,8 @@ def main() -> int:
           f"{res['tokens_per_s']:.1f} trained tokens/s, max_memory_allocated "
           f"{res['max_memory_allocated']} B; checkpoint save {res['save_s']:.2f} s, "
           f"restore {res['restore_s']:.2f} s; resume errors: loss "
-          f"{res['resume_loss_err']:.3e}, params {res['resume_params_err']:.3e}", flush=True)
+          f"{res['resume_loss_err']:.3e}, params {res['resume_params_err']:.3e}; losses "
+          f"{[m['loss'] for m in res['metrics']]}", flush=True)
     losses = [m["loss"] for m in res["metrics"]]
     _check(all(np.isfinite([m["loss"] for m in res["metrics"]]))
            and all(np.isfinite([m["grad_norm"] for m in res["metrics"]])),
@@ -2741,7 +2816,7 @@ def main() -> int:
 
     # 11. the dry run of launch/ on the fake backend
     t_phase = time.perf_counter()
-    dry_run_cells()
+    dry_run_cells(dry_run)
     _phase_done(11, t_phase)
 
     # 12. results; the ok line is last

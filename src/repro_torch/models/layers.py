@@ -4,7 +4,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -275,8 +275,11 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     The padded slots (index >= ``vocab_size``) are set to -1e9 before the
     log-sum-exp, as in the JAX package, so they take no probability and
     receive no gradient. A DTensor whose vocab is sharded is reduced on
-    each rank's columns (``_VocabShardedCE``): no rank gathers the vocab.
+    each rank's columns (``_VocabShardedCE``): no rank gathers the vocab;
+    so are ``VocabPieces`` (``spread_logits``).
     """
+    if isinstance(logits, VocabPieces):
+        return _pieces_cross_entropy(logits, labels, vocab_size)
     if _vocab_mesh_dims(logits):
         return _sharded_cross_entropy(logits, labels, vocab_size)
     vp = logits.shape[-1]
@@ -297,11 +300,13 @@ def _vocab_mesh_dims(logits) -> list:
     return [i for i, p in enumerate(logits.placements) if isinstance(p, Shard) and p.dim == last]
 
 
+def _wait(x):
+    return x.wait() if isinstance(x, funcol.AsyncCollectiveTensor) else x
+
+
 def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
     for group in groups:
-        x = funcol.all_reduce(x, op, group)
-        if isinstance(x, funcol.AsyncCollectiveTensor):
-            x = x.wait()
+        x = _wait(funcol.all_reduce(x, op, group))
     return x
 
 
@@ -371,6 +376,230 @@ def _sharded_cross_entropy(logits: DTensor, labels, vocab_size: int) -> DTensor:
     loss = _VocabShardedCE.apply(logits.to_local(), labels, local_offset(logits, -1),
                                  vocab_size, [mesh.get_group(i) for i in dims])
     return from_local(loss, mesh, rows_pl, logits.shape[:-1])
+
+
+# ---------------------------------------------------------------------------
+# The head on rows cut unevenly: each rank's piece of the vocab, model-major
+# ---------------------------------------------------------------------------
+class VocabPieces(NamedTuple):
+    """Logits whose vocab is cut into one piece a rank, the pieces of each of
+    the head's own vocab slices cut again over other mesh dims
+    (``spread_logits``): an order no DTensor placement has, so they travel
+    as each rank's ``local`` columns ``[v0, v0 + width)`` of every row, the
+    whole logits' ``shape`` and the ``plan`` of the cut.
+    ``softmax_cross_entropy`` takes them; ``to_dtensor`` gathers them for a
+    caller that reads the logits."""
+    local: torch.Tensor
+    v0: int
+    shape: Tuple[int, ...]
+    plan: Any
+
+    def to_dtensor(self) -> DTensor:
+        """The logits with the vocab on the head's own mesh dims: each rank's
+        slice whole (the pieces gathered over the dims that cut it again)."""
+        mesh, last = self.plan.mesh, len(self.shape) - 1
+        return from_local(_GatherPieces.apply(self.local, self.plan), mesh,
+                          [Shard(last) if i in self.plan.vocab else Replicate()
+                           for i in range(mesh.ndim)], self.shape)
+
+
+def _chunk(size: int, n: int, i: int) -> Tuple[int, int]:
+    """(start, length) of chunk ``i`` of ``n`` of ``size`` cut as ``torch.chunk``
+    (and DTensor's ``Shard``) cuts it: chunks of ``ceil(size / n)``, the last
+    ones shorter or empty."""
+    c = -(-size // n)
+    start = min(i * c, size)
+    return start, min(c, size - start)
+
+
+class _Plan(NamedTuple):
+    """How this rank's piece of the head is cut (``spread_logits``)."""
+    mesh: Any
+    vocab: List[int]        # the mesh dims that cut the head's vocab
+    cut: List[int]          # the mesh dims that cut each vocab slice again, in mesh order
+    d_dims: List[int]       # the mesh dims that cut the head's D, in mesh order
+    d: int                  # the head's whole D
+    n: int                  # the rows of this rank's vocab slice
+    c: int                  # the rows of a piece, padded: ceil(n / pieces)
+    k: int                  # this rank's piece
+    width: int              # its rows, unpadded
+
+    def coord(self, i: int) -> int:
+        return self.mesh.get_local_rank(i)
+
+    def groups(self) -> list:
+        """The process groups of the mesh dims that cut the vocab into pieces."""
+        return [self.mesh.get_group(i) for i in self.vocab + self.cut]
+
+    def d_sizes(self, i: int) -> List[int]:
+        """The D columns each rank of mesh dim ``i`` holds once the D dims
+        after ``i`` are gathered: chunks of the span the dims before it cut."""
+        size = self.d
+        for e in self.d_dims[:self.d_dims.index(i)]:
+            size = _chunk(size, self.mesh.size(e), self.coord(e))[1]
+        return [_chunk(size, self.mesh.size(i), j)[1] for j in range(self.mesh.size(i))]
+
+    def stages(self) -> List[Tuple[str, int]]:
+        """In forward order: take this rank's pieces along each cut dim that
+        replicates the head, then undo the D cut from its last mesh dim to
+        its first: an all-to-all where the dim also cuts the pieces, else
+        an all-gather."""
+        return ([("take", i) for i in self.cut if i not in self.d_dims]
+                + [("a2a" if i in self.cut else "gather", i) for i in reversed(self.d_dims)])
+
+
+def _a2a(x, ax: int, group, cols: List[int]):
+    """All-to-all over ``group``: ``x``'s index ``j`` along axis ``ax`` goes
+    to rank ``j``, and what rank ``j`` sends back, ``cols[j]`` columns of the
+    last dim, joins along it (``ax`` left of size 1)."""
+    send = x.movedim(ax, 0)
+    rest = tuple(send.shape[1:-1])
+    per = math.prod(rest)
+    out = _wait(funcol.all_to_all_single(send.reshape(-1), [per * w for w in cols],
+                                         [per * x.shape[-1]] * len(cols), group))
+    parts = out.split([per * w for w in cols])
+    return torch.cat([t.reshape(rest + (w,)) for t, w in zip(parts, cols)], -1).unsqueeze(ax)
+
+
+def _a2a_back(g, ax: int, group, cols: List[int], mine: int):
+    """The inverse of ``_a2a``: the last dim's ``cols[j]`` columns go back to
+    rank ``j``, and what each sends (``mine`` columns) stacks along ``ax``."""
+    g = g.squeeze(ax)
+    rest = g.shape[:-1]
+    per = math.prod(rest)
+    flat = torch.cat([t.reshape(-1) for t in g.split(cols, -1)])
+    out = _wait(funcol.all_to_all_single(flat, [per * mine] * len(cols),
+                                         [per * w for w in cols], group))
+    return out.reshape((len(cols),) + tuple(rest) + (mine,)).movedim(0, ax)
+
+
+def _gather_cols(x, group, cols: List[int]):
+    """The last dim gathered over ``group``, rank ``j`` holding ``cols[j]``
+    (padded to the widest for the all-gather)."""
+    pad = max(cols) - x.shape[-1]
+    x = F.pad(x, (0, pad)) if pad else x
+    out = _wait(funcol.all_gather_tensor(x.unsqueeze(0).contiguous(), 0, group))
+    return torch.cat([out[j, ..., :w] for j, w in enumerate(cols)], -1)
+
+
+def _gather_axis(x, ax: int, group):
+    """Axis ``ax`` (of size 1 here) gathered over ``group``."""
+    return _wait(funcol.all_gather_tensor(x.contiguous(), ax, group))
+
+
+class _HeadPiece(torch.autograd.Function):
+    """This rank's piece of the head, D whole, from its block (its vocab
+    slice's rows, its D chunk): the slice padded to ``pieces x c`` rows and
+    laid out (one axis a cut dim, ..., c, D) as the pieces are numbered,
+    then ``_Plan.stages``. No rank holds or moves more than its slice. The
+    backward runs the stages the other way: the piece's gradient goes to
+    the ranks that hold its D (an all-to-all), is gathered over the dims
+    that replicate the head, and comes back in the block's own placements."""
+
+    @staticmethod
+    def forward(ctx, w, plan: _Plan):
+        ctx.plan = plan
+        sizes = [plan.mesh.size(i) for i in plan.cut]
+        x = F.pad(w, (0, 0, 0, math.prod(sizes) * plan.c - plan.n))
+        x = x.reshape(tuple(sizes) + (plan.c, w.shape[1]))
+        for kind, i in plan.stages():
+            group = (plan.mesh, i)
+            if kind == "take":
+                x = x.narrow(plan.cut.index(i), plan.coord(i), 1)
+            elif kind == "a2a":
+                x = _a2a(x, plan.cut.index(i), group, plan.d_sizes(i))
+            else:
+                x = _gather_cols(x, group, plan.d_sizes(i))
+        return x.reshape(plan.c, plan.d)[:plan.width].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        g = F.pad(g, (0, 0, 0, plan.c - plan.width))
+        g = g.reshape((1,) * len(plan.cut) + (plan.c, plan.d))
+        for kind, i in reversed(plan.stages()):
+            group = (plan.mesh, i)
+            if kind == "take":
+                g = _gather_axis(g, plan.cut.index(i), group)
+            else:
+                cols = plan.d_sizes(i)
+                j = plan.coord(i)
+                if kind == "a2a":
+                    g = _a2a_back(g, plan.cut.index(i), group, cols, cols[j])
+                else:
+                    g = g.narrow(-1, sum(cols[:j]), cols[j])
+        return g.reshape(-1, g.shape[-1])[:plan.n], None
+
+
+class _GatherPieces(torch.autograd.Function):
+    """Each rank's logits piece (..., width) gathered over the cut dims, the
+    innermost first, into its vocab slice (..., n); the backward takes the
+    piece back."""
+
+    @staticmethod
+    def forward(ctx, x, plan: _Plan):
+        ctx.plan = plan
+        x = F.pad(x, (0, plan.c - x.shape[-1]))
+        for i in reversed(plan.cut):
+            x = _gather_axis(x.unsqueeze(0), 0, (plan.mesh, i))
+            x = x.movedim(0, -2).reshape(x.shape[1:-1] + (-1,))
+        return x[..., :plan.n].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        start = min(plan.k * plan.c, plan.n)
+        return g[..., start:start + plan.width].contiguous(), None
+
+
+def spread_logits(h: DTensor, head: DTensor) -> VocabPieces:
+    """``h @ head.T`` where ``h``'s rows are cut unevenly over its dp mesh
+    dims (``uneven_rows``): every rank takes all the rows against its own
+    piece of the vocab, so the product and the loss are shared by all the
+    ranks, not left to those that hold a row.
+
+    The vocab is cut model-major: the head's rows stay cut as the head cuts
+    them (its vocab mesh dims), and each slice is cut again over the rows'
+    dp mesh dims that do not cut the vocab, so rank (p, d, m) of a (pod,
+    data, model) mesh takes piece ``p·D + d`` of its ``model`` slice, which
+    lies inside the slice it holds. ``_HeadPiece`` brings that piece's D
+    together from the ranks that hold it; the head's whole never moves
+    (DTensor cuts a dim over several mesh dims pod-major, and so gathered
+    the whole head to reach its pieces). The gradient of ``h``'s rows is
+    Partial over the pieces' mesh dims; the head's comes back in its own
+    placements."""
+    mesh = h.device_mesh
+    rows = [i for i, p in enumerate(h.placements) if p == Shard(0)]
+    vocab = [i for i, p in enumerate(head.placements) if p == Shard(0)]
+    d_dims = [i for i, p in enumerate(head.placements) if p == Shard(1)]
+    if any(isinstance(p, Partial) for p in head.placements):
+        raise ValueError(f"a head with a Partial placement: {head.placements}")
+    cut = [i for i in rows if i not in vocab]
+    w = head.to_local()
+    n, pieces = w.shape[0], math.prod(mesh.size(i) for i in cut)
+    k = 0
+    for i in cut:
+        k = k * mesh.size(i) + mesh.get_local_rank(i)
+    c = -(-n // pieces)
+    start, width = _chunk(n, pieces, k)
+    plan = _Plan(mesh, vocab, cut, d_dims, head.shape[1], n, c, k, width)
+    piece = _HeadPiece.apply(w, plan)
+    x = h.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if i in vocab + cut else Replicate()
+                         for i in range(mesh.ndim)])
+    return VocabPieces(x @ piece.T, local_offset(head, 0) + start,
+                       tuple(h.shape[:-1]) + (head.shape[0],), plan)
+
+
+def _pieces_cross_entropy(logits: VocabPieces, labels, vocab_size: int) -> DTensor:
+    """``softmax_cross_entropy`` of ``VocabPieces``: every rank holds every
+    row, so the per-row loss is whole on each (a replicated DTensor)."""
+    mesh = logits.plan.mesh
+    if isinstance(labels, DTensor):
+        labels = labels.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    loss = _VocabShardedCE.apply(logits.local, labels, logits.v0, vocab_size,
+                                 logits.plan.groups())
+    return from_local(loss, mesh, [Replicate()] * mesh.ndim, logits.shape[:-1])
 
 
 # ---------------------------------------------------------------------------

@@ -36,17 +36,18 @@ class Model:
         batch's inputs (``apply``), plus 0.01 times the MoE aux loss: an
         f32 scalar that carries the graph back to ``params`` when they
         require grad."""
-        logits, aux, _ = self.apply(params, batch)
+        logits, aux, _ = self.apply(params, batch, vocab_pieces=True)
         return transformer.lm_loss(logits, batch["labels"], self.cfg, aux)
 
     # -- forward ----------------------------------------------------------
     def apply(self, params, batch, return_cache: bool = False,
-              last_only: bool = False):
+              last_only: bool = False, vocab_pieces: bool = False):
         """Forward over the batch's inputs, by frontend: ``embeds`` (B, S, D)
         for audio, ``tokens`` (B, S) and ``img_embeds`` (B, N, D) for
         vision, ``tokens`` otherwise."""
         cfg = self.cfg
-        kw = dict(return_cache=return_cache, last_only=last_only)
+        kw = dict(return_cache=return_cache, last_only=last_only,
+                  vocab_pieces=vocab_pieces)
         if cfg.frontend == "audio":
             return transformer.forward(params, cfg, self.rc, embeds=batch["embeds"], **kw)
         if cfg.frontend == "vision":

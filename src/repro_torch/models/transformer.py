@@ -49,7 +49,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (RunConfig, apply_mlp, embed_init, init_mlp,
                                        linear, rms_norm, softmax_cross_entropy,
-                                       uneven_rows, vocab_sharded_lookup)
+                                       spread_logits, uneven_rows, vocab_sharded_lookup)
 from repro_torch.parallel.mesh import unbind, unshard_dim
 
 # SSM / router leaves that stay f32 through compute-dtype casting
@@ -331,7 +331,7 @@ def _maybe_remat(fn, rc: RunConfig):
     return remat
 
 
-def _logits(params, h, cfg, rc: Optional[RunConfig] = None):
+def _logits(params, h, cfg, rc: Optional[RunConfig] = None, vocab_pieces: bool = False):
     """The head's product on the final-normed ``h``, softcapped where the
     config says, and given ``rc`` constrained to rows on dp, vocab on tp.
 
@@ -341,31 +341,34 @@ def _logits(params, h, cfg, rc: Optional[RunConfig] = None):
     DTensor may gather the rows instead where a rank holds few (2 a rank:
     the micro-batch's whole logits on every rank). Where h's rows are cut
     unevenly (a micro-batch of fewer rows than dp ranks, some ranks
-    holding none), every rank takes all the rows against its share of
-    the vocab, cut over the rows' mesh dims and the head's own: the
-    product and the loss are then shared by all ranks, not left to the
-    ranks that hold a row; those logits stay so, unconstrained. Either
-    way the head's gradient is reduced into its placements.
+    holding none), every rank takes all the rows against its own piece of
+    the vocab, cut model-major (``layers.spread_logits``): the product and
+    the loss are then shared by all ranks, not left to the ranks that hold
+    a row. Those logits come back as ``VocabPieces`` where the caller asks
+    for them (``vocab_pieces``: the loss), else gathered into each vocab
+    slice of the head. Either way the head's gradient comes back in its
+    placements.
     """
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    spread = uneven_rows(h) and isinstance(head, DTensor)
-    if spread:
-        dp = [i for i, p in enumerate(h.placements) if p == Shard(0)]
-        h = unshard_dim(h, 0)
-        head = head.redistribute(head.device_mesh, [
-            Shard(0) if i in dp or p == Shard(0) else Replicate()
-            for i, p in enumerate(head.placements)])
-    elif isinstance(h, DTensor) and isinstance(head, DTensor) and any(
+    if uneven_rows(h) and isinstance(head, DTensor):
+        pieces = spread_logits(h, head)
+        pieces = pieces._replace(local=_softcap(pieces.local, cfg))
+        return pieces if vocab_pieces else pieces.to_dtensor()
+    if isinstance(h, DTensor) and isinstance(head, DTensor) and any(
             hp == Shard(0) and wp == Shard(1)
             for hp, wp in zip(h.placements, head.placements)):
         head = unshard_dim(head, 1)
-    logits = linear(h, head.T)
-    if cfg.logit_softcap:
-        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    if rc is None or spread:
+    logits = _softcap(linear(h, head.T), cfg)
+    if rc is None:
         return logits
     return rc.constrain(logits, ("dp", None, "tp"))
+
+
+def _softcap(logits, cfg):
+    if cfg.logit_softcap:
+        return torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +395,8 @@ def _embed(params, cfg, rc: RunConfig, tokens, embeds):
 def forward(params, cfg, rc: RunConfig, *, tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             img_embeds: Optional[torch.Tensor] = None,
-            return_cache: bool = False, last_only: bool = False):
+            return_cache: bool = False, last_only: bool = False,
+            vocab_pieces: bool = False):
     """Full-sequence forward over tokens (B, S), or frame embeddings
     ``embeds`` (B, S, D) for the audio family; a vlm also takes
     ``img_embeds`` (B, N, D), and without them runs its self-attention
@@ -407,7 +411,9 @@ def forward(params, cfg, rc: RunConfig, *, tokens: Optional[torch.Tensor] = None
     and for the hybrid that state plus the shared block's "k", "v":
     (n_apps, B, S, K, hd), one per application; ``pos`` is a host int.
     ``last_only`` emits logits for the final position only (what serving
-    prefill needs).
+    prefill needs). ``vocab_pieces``: on rows cut unevenly over a mesh the
+    logits come back as each rank's ``layers.VocabPieces``, which only the
+    loss reads (``_logits``).
     """
     _require_family(cfg)
     params = _cast_params(params, rc)
@@ -424,7 +430,7 @@ def forward(params, cfg, rc: RunConfig, *, tokens: Optional[torch.Tensor] = None
         cache["pos"] = S
     if last_only:
         h = h[:, -1:, :]
-    return _logits(params, h, cfg, rc), aux, cache
+    return _logits(params, h, cfg, rc, vocab_pieces), aux, cache
 
 
 def _attn_forward(params, cfg, rc, h, positions, img, return_cache):

@@ -157,24 +157,29 @@ def make_train_step(model: Model, trc: TrainRunConfig):
 
     With ``grad_accum = a`` the batch is cut into ``a`` micro-batches
     along dim 0 as one process cuts it (``micro_batch``: on DTensors each
-    spread over the batch's dp ranks), their gradients summed in f32 and
-    divided by ``a``, the loss averaged. Every metric is a device tensor
-    (no host sync). On DTensors, each gradient is placed like its param
-    before the int8 hook and AdamW, and the metrics are made whole.
+    spread over the batch's dp ranks), their gradients summed in f32 (in
+    place, into one buffer a leaf) and divided by ``a``, the loss averaged.
+    Every metric is a device tensor (no host sync). On DTensors, each
+    gradient is placed like its param before the int8 hook and AdamW, and
+    the metrics are made whole. The step hands its gradients to AdamW,
+    which lets each go once its leaf is updated.
     """
 
     def train_step(state: TrainState, batch):
         if trc.grad_accum > 1:
             a = trc.grad_accum
-            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
             lsum = torch.zeros((), dtype=torch.float32, device=state.step.device)
             for i in range(a):
                 loss, g = value_and_grad(model.loss, state.params,
                                          {k: micro_batch(v, a, i) for k, v in batch.items()})
-                g = tree_map(_like_param, g, state.params)
-                gsum = tree_map(lambda s, x: s + x.float(), gsum, g)
+                for s, x, p in zip(tree_leaves(grads), tree_leaves(g),
+                                   tree_leaves(state.params)):
+                    s.add_(_like_param(x, p))
+                del g
                 lsum = lsum + loss
-            grads = tree_map(lambda g: g / a, gsum)
+            for s in tree_leaves(grads):
+                s.div_(a)
             loss = lsum / a
         else:
             loss, grads = value_and_grad(model.loss, state.params, batch)
@@ -184,7 +189,7 @@ def make_train_step(model: Model, trc: TrainRunConfig):
             grads = comp_lib.quantize_dequantize_int8(grads)
 
         with torch.no_grad():
-            new_state, metrics = apply_updates(state, grads, trc.opt)
+            new_state, metrics = apply_updates(state, grads, trc.opt, free_grads=True)
         metrics = {k: whole(v) for k, v in metrics.items()}
         metrics["loss"] = loss
         return new_state, metrics

@@ -116,3 +116,16 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: IsLeaf = None):
     others = [tree_flatten_with_path(r) for r in rest]
     return tree_rebuild(tree, {k: fn(v, *(o[k] for o in others)) for k, v in flat.items()},
                         is_leaf)
+
+
+def tree_clear(tree) -> None:
+    """Empty every dict and list of ``tree`` in place, so it holds its leaves
+    no more (a tuple or NamedTuple cannot be emptied: the walk goes through
+    it). For a tree its owner hands over and reads no more."""
+    kids = _children(tree, None)
+    if kids is None:
+        return
+    for _, sub in kids:
+        tree_clear(sub)
+    if isinstance(tree, (dict, list)):
+        tree.clear()

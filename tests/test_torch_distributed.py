@@ -18,7 +18,10 @@ rank's 7 q heads read one KV head), on (2, 4) query rows (14 % 4 != 0:
 each rank's 8 rows run at q_offset 0, 8, 16 or 24 against the full
 k/v); a third case takes the (4, 2) step with grad_accum 2, each
 micro-batch the rows one process's cut gives it, spread over the data
-ranks (``runtime.train.micro_batch``). Two more run under remat: on the
+ranks (``runtime.train.micro_batch``), and a fourth (``pod_spread``) the
+(pod 2, data 2, model 2) step at grad_accum 4, whose micro-batches of 2
+rows on 4 dp ranks take the head's spread path (each rank's model-major
+piece of the vocab). Two more run under remat: on the
 (1, 7) mesh over 7 of the 8 ranks below ("dots": 2 of the 14 heads a
 rank, straddling the GQA groups), and on (2, 4) ("full": each layer's
 weights gathered and its carry cut over tp inside the checkpoint, and
@@ -82,7 +85,10 @@ TRAIN_CASES = {"heads": ((4, 2), {"attn_exit_constrain": True}, 1),
                "seq": ((2, 4), {"seq_shard_carry": True}, 1),
                "heads_accum": ((4, 2), {}, 2),
                "straddle": ((1, STRADDLE_TP), {"remat": True, "remat_policy": "dots"}, 1),
-               "seq_remat": ((2, 4), {"remat": True, "remat_policy": "full"}, 1)}
+               "seq_remat": ((2, 4), {"remat": True, "remat_policy": "full"}, 1),
+               "pod_spread": ((2, 2, 2), {}, 4)}
+# the axes of a mesh by its rank
+AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 # (4, 2): heads and the cache's KV heads on tp; (2, 4): query rows, and the
 # cache's head_dim on tp (2 KV heads on 4), so decode sums its scores over tp
 SERVE_MESHES = {"serve": (4, 2), "serve_seq": (2, 4)}
@@ -158,14 +164,32 @@ def _train(out, params, batch, meshes):
             cfg, mesh, B=B, S=S, rc=_rc(**kw), trc=trc)
         state = ttrain.distribute(init_state(params), st_sh)
         db = shard_batch(batch, mesh, specs_of(b_sh))
-        with _recording_grads() as seen:
+        with _recording_grads() as seen, counting_spread_heads() as spread:
             new, met = step(state, db)
         loss, grads = seen[0]                 # the first (micro-)batch's
         out[name] = {"attn_shard": model.rc.attn_shard, "loss": float(_whole({"l": loss})["l"]),
                      "grads": _whole(grads), "params": _whole(new.params),
                      "step_loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                     "spread_heads": len(spread),
                      "placements": {k: [str(p) for p in v.placements]
                                     for k, v in tree_flatten_with_path(new.params).items()}}
+
+
+@contextlib.contextmanager
+def counting_spread_heads():
+    """Count the head's products on rows cut unevenly (``_logits``' spread
+    path: each rank's model-major piece of the vocab)."""
+    from repro_torch.models import transformer
+    calls, real = [], transformer.spread_logits
+
+    def spread(*args):
+        calls.append(1)
+        return real(*args)
+    transformer.spread_logits = spread
+    try:
+        yield calls
+    finally:
+        transformer.spread_logits = real
 
 
 @contextlib.contextmanager
@@ -242,8 +266,8 @@ def worker(rank: int, tmp: Path) -> None:
     params = tree_rebuild(build(_cfg(), _rc()).init_eval_shape(), inputs["params"])
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.launch.mesh import mesh_from_ranks
-    meshes = {shape: init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-              for shape in ((4, 2), (2, 4))}
+    meshes = {shape: init_device_mesh("cpu", shape, mesh_dim_names=AXES[len(shape)])
+              for shape in ((4, 2), (2, 4), (2, 2, 2))}
     # every rank takes part in making it; rank 7 gets None
     meshes[(1, STRADDLE_TP)] = mesh_from_ranks(range(STRADDLE_TP), (1, STRADDLE_TP),
                                                ("data", "model"))
@@ -307,8 +331,8 @@ def flat(tree):
 
 def mesh_of(shape):
     n = int(np.prod(shape))
-    return jax.make_mesh(tuple(shape), ("data", "model"), devices=jax.devices()[:n],
-                         axis_types=(AxisType.Auto,) * 2)
+    return jax.make_mesh(tuple(shape), ("pod", "data", "model")[-len(shape):],
+                         devices=jax.devices()[:n], axis_types=(AxisType.Auto,) * len(shape))
 
 
 cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(), **a["cfg"])
@@ -420,6 +444,7 @@ def world(tmp_path_factory):
         train = _single_train(cfg, params, batch)
         port = {"heads": train, "seq": train, "straddle": train, "seq_remat": train,
                 "heads_accum": _single_train(cfg, params, batch, grad_accum=2),
+                "pod_spread": _single_train(cfg, params, batch, grad_accum=4),
                 "elastic": _single_elastic(cfg, params)}
         port["serve"] = port["serve_seq"] = port["serve_straddle"] = serve_logits(
             params, batch, None)
@@ -489,7 +514,7 @@ def _check_train(got, ref, case):
     micro-batches as one process and JAX's ``split`` cut them (the rows
     ``[0, B / a)`` first), so the first micro-batch's loss and every
     gradient leaf are compared, and the step's loss, grad norm and params."""
-    assert got["attn_shard"] == ("heads" if _cfg().n_heads % TRAIN_CASES[case][0][1] == 0
+    assert got["attn_shard"] == ("heads" if _cfg().n_heads % TRAIN_CASES[case][0][-1] == 0
                                  else "seq")
     for key in ("loss", "step_loss", "grad_norm"):
         assert abs(got[key] - ref[key]) <= 1e-5 * abs(ref[key]), (key, got[key], ref[key])
@@ -509,8 +534,24 @@ def _check_train(got, ref, case):
         diff = (got["params"][k] - torch.as_tensor(p)).abs()
         assert float(diff[~near0].max()) <= STEP_TOL, k
         assert float(diff.max()) <= 2 * lr + STEP_TOL, k
-    # the state keeps the param specs' placements: wq's columns on tp, its rows on fsdp
-    assert got["placements"]["blocks/attn/wq"] == ["S(1)", "S(2)"]
+    # the state keeps the param specs' placements: wq's columns on tp, its rows on
+    # fsdp (and replicated over a pod)
+    assert got["placements"]["blocks/attn/wq"] == ["R"] * (len(TRAIN_CASES[case][0]) - 2) + [
+        "S(1)", "S(2)"]
+
+
+def test_only_uneven_micro_batches_take_the_spread_head(world):
+    """``pod_spread``: 8 rows at grad_accum 4 on (pod 2, data 2, model 2), a
+    micro-batch of 2 rows on 4 dp ranks: each of its 4 heads runs on each
+    rank's model-major vocab piece (``layers.spread_logits``: taken along
+    pod, its D brought together over data), held to one process and JAX by
+    the train tests. The even cases never take it."""
+    for case, (shape, _, accum) in TRAIN_CASES.items():
+        dp = int(np.prod(shape[:-1]))
+        expect = accum if (B // accum) % dp else 0
+        if case in world["out"]:
+            assert world["out"][case]["spread_heads"] == expect, (case, expect)
+    assert world["out"]["pod_spread"]["spread_heads"] == 4
 
 
 @pytest.mark.parametrize("case", sorted(TRAIN_CASES))
@@ -624,6 +665,7 @@ def card_check(tmp: Path) -> None:
     train = _single_train(cfg, params, batch)
     port = {"heads": train, "seq": train, "straddle": train, "seq_remat": train,
             "heads_accum": _single_train(cfg, params, batch, grad_accum=2),
+            "pod_spread": _single_train(cfg, params, batch, grad_accum=4),
             "elastic": _single_elastic(cfg, params)}
     port["serve"] = port["serve_seq"] = port["serve_straddle"] = serve_logits(params, batch,
                                                                               None)
@@ -632,6 +674,7 @@ def card_check(tmp: Path) -> None:
     test_ring_all_reduce_matches_all_reduce(world)
     for case in sorted(TRAIN_CASES):
         test_sharded_train_step_matches_single_process(world, case)
+    test_only_uneven_micro_batches_take_the_spread_head(world)
     for case in ("serve", "serve_seq", "serve_straddle"):
         test_sharded_prefill_and_decode_match_single_process(world, case, "port")
     test_elastic_shrink_restores_and_replays(world, "port")

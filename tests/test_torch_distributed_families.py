@@ -34,7 +34,9 @@ data ranks (``runtime.train.micro_batch``): at 2, one row a rank; at 4
 and the other none. An MoE's micro-batch loss is not linear in its rows
 (the aux loss is a product of two means over its tokens, and its
 capacity groups are its own), so the step's loss and gradient equal one
-process's only when every micro-batch holds the same rows.
+process's only when every micro-batch holds the same rows. At 4 each
+micro-batch's head takes the spread path (``layers.spread_logits``: all
+its rows against each rank's model-major piece of the vocab).
 
 Every result is held twice: against the port in one process, and
 against the JAX package's sharded twin on the same weights and inputs
@@ -199,6 +201,23 @@ def serve_logits(cfg, params, inputs, mesh, batch=B):
 
 
 @contextlib.contextmanager
+def counting_spread_heads():
+    """Count the head's products on rows cut unevenly (``_logits``' spread
+    path: each rank's model-major piece of the vocab)."""
+    from repro_torch.models import transformer
+    calls, real = [], transformer.spread_logits
+
+    def spread(*args):
+        calls.append(1)
+        return real(*args)
+    transformer.spread_logits = spread
+    try:
+        yield calls
+    finally:
+        transformer.spread_logits = real
+
+
+@contextlib.contextmanager
 def _recording_grads():
     """Record each (loss, grads) the train step's ``value_and_grad`` returns."""
     seen, real = [], ttrain.value_and_grad
@@ -227,13 +246,13 @@ def train_step(cfg, params, inputs, mesh, grad_accum=1):
     else:
         state = ttrain.distribute(state, st_sh)
         batch = shard_batch(batch, mesh, specs_of(b_sh))
-    with _recording_grads() as seen:
+    with _recording_grads() as seen, counting_spread_heads() as spread:
         new, met = step(state, batch)
     micro = [_whole(g) for _, g in seen]
     return {"loss": sum(float(_whole({"l": l})["l"]) for l, _ in seen) / len(seen),
             "grads": {k: sum(g[k] for g in micro) / len(micro) for k in micro[0]},
             "params": _whole(new.params), "step_loss": float(met["loss"]),
-            "grad_norm": float(met["grad_norm"])}
+            "grad_norm": float(met["grad_norm"]), "spread_heads": len(spread)}
 
 
 def _port_params(cfg, flat):
@@ -460,6 +479,20 @@ def test_sharded_train_step_matches(world, case, ref_of):
         assert float(diff.max()) <= 2 * OPT["lr"] + STEP_TOL, k
 
 
+def test_uneven_micro_batches_take_the_spread_head(world):
+    """At grad_accum 4 a micro-batch of one row sits on one of the two data
+    ranks: each of the MoE step's 4 heads runs on each rank's model-major
+    vocab piece (``layers.spread_logits``), held to one process and JAX by
+    ``test_sharded_train_step_matches``. The even cases never take it."""
+    counts = {case: world["out"][case]["spread_heads"]
+              for case in [f"train/{a}" for a in TRAIN_ARCHS] + list(ACCUM)}
+    print(f"spread heads a step: {counts}")
+    assert counts["train_accum4/qwen2-moe-a2.7b"] == 4, counts
+    for case, n in counts.items():
+        if B // ACCUM.get(case, (None, 1))[1] % MESH[0] == 0:
+            assert n == 0, counts
+
+
 def card_check(tmp: Path) -> None:
     """The world against the port in one process, on weights of the port's
     own seeded init: the run for a machine without JAX (the card's, whose
@@ -494,6 +527,7 @@ def card_check(tmp: Path) -> None:
         test_sharded_prefill_and_decode_match(world, case, "port")
     for case in [f"train/{a}" for a in TRAIN_ARCHS] + list(ACCUM):
         test_sharded_train_step_matches(world, case, "port")
+    test_uneven_micro_batches_take_the_spread_head(world)
     print(f"CARD_CHECK_OK torch {torch.__version__}: K2 on local heads, "
           f"{len(SERVE_ARCHS) + 1} served and {len(TRAIN_ARCHS) + len(ACCUM)} trained cases "
           f"on the "

@@ -45,8 +45,10 @@ on 2x16x16 leaves 8 rows a rank) goes through both sides' ``build_cell``
 in the same two subprocesses (JAX's compiles in about 5 s on the CPU, so
 the cell keeps its full width): each micro-batch of one row sits on one
 dp rank, the head's product and loss are shared by every rank (the rows
-against each rank's vocab slice), and the port's per-device FLOPs are at
-most 1.10x JAX's, argument bytes equal. And at 2 rows a rank (``HEAD``:
+against each rank's vocab slice, cut model-major inside its model slice:
+no collective takes or gives more than that slice, and no storage of the
+whole head's shape is alive at the peak), and the port's per-device FLOPs
+are at most 1.10x JAX's, argument bytes equal. And at 2 rows a rank (``HEAD``:
 qwen2-0.5b, 1 layer, B=16 on (4, 2), grad_accum 2) the head multiplies
 each rank's own rows: no product of the head takes more rows than the
 rank holds, and no collective moves logits.
@@ -56,6 +58,7 @@ to one segment, traces with status ``ok`` or, where ``shape_applicable``
 says so, ``skipped``.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -146,7 +149,7 @@ for layers in (LAYERS, 2 * LAYERS):
                    "leaves": leaves}
 
 import torch
-from repro_torch.launch.trace_analysis import _collective
+from repro_torch.launch.trace_analysis import _collective, _tensors
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.runtime.train import TrainRunConfig
 
@@ -163,8 +166,9 @@ class Shapes(TraceAnalysis):
             return out
         if str(func._overloadpacket) == "aten.mm":
             self.mm.append([list(args[0].shape), list(args[1].shape)])
-        elif _collective(func) and isinstance(out, torch.Tensor):
-            self.moved.append([_collective(func), list(out.shape)])
+        elif _collective(func):
+            self.moved += [[_collective(func), list(t.shape)]
+                           for t in _tensors((args, kwargs, out))]
         return out
 
 
@@ -191,10 +195,13 @@ for name, c in (("scout", SCOUT_ARGS), ("head", HEAD_ARGS)):
                                    trc=TrainRunConfig(opt=OptConfig(), grad_accum=c["accum"]))
     with Shapes() as ta:
         fn(*kwargs.values())
+    head = [cfg.vocab_padded, cfg.d_model]
     out[name] = {"flops": ta.stats.flops, "argument_bytes": dryrun.local_bytes(kwargs),
                  "temp_bytes": ta.stats.peak_live_bytes, "vocab_padded": cfg.vocab_padded,
-                 "mm": ta.mm, "moved": ta.moved, "straddled": sum(straddled),
-                 "moe_gathers": len(straddled)}
+                 "d_model": cfg.d_model, "mm": ta.mm, "moved": ta.moved,
+                 "straddled": sum(straddled), "moe_gathers": len(straddled),
+                 "head_at_peak": sum(list(made[1]) == head
+                                     for _, _, made in ta._at_peak.values())}
 print(json.dumps(out))
 """
 
@@ -312,6 +319,17 @@ def test_multi_pod_cell_with_fewer_rows_than_micro_batches(parity):
     # has a larger dim
     share = -(-port["vocab_padded"] // (SCOUT["grid"][0] * SCOUT["grid"][1] * SCOUT["grid"][2]))
     assert max(d for a, b in port["mm"] for d in a + b) <= share
+    # those slices are cut model-major, each inside the rank's own model
+    # slice of the head: no collective takes or gives more than that slice,
+    # and no storage of the whole head's shape is alive at the peak (DTensor,
+    # cutting the vocab pod-major, went through the whole head to reach them)
+    model_slice = -(-port["vocab_padded"] // SCOUT["grid"][2]) * port["d_model"]
+    largest = max(port["moved"], key=lambda m: math.prod(m[1]))
+    print(f"the largest tensor a collective took or gave: {largest}; the head's model "
+          f"slice {model_slice} elements; whole-head storages at the peak "
+          f"{port['head_at_peak']}")
+    assert math.prod(largest[1]) <= model_slice, largest
+    assert port["head_at_peak"] == 0, port["head_at_peak"]
 
 
 def test_head_takes_each_ranks_own_rows(parity):

@@ -8,7 +8,12 @@ Two worlds run at once (``tests/torch_world.py``: spawned ranks, a
 (1, 4) mesh, 3 ranks on (1, 3). Each case places one set of f32 logits
 (B=4, S=6, Vp columns) on its mesh: the vocab on "model" (the rows on
 "data"), on ("data", "model") together, or on no mesh dim (the tensor
-path). Vp = 44 with vocab sizes 40 (the pad inside the last shard) and 30
+path), or cut model-major into every rank's piece on a (pod 1, data 2,
+model 2) or (pod 2, data 2, model 1) mesh (``VocabPieces`` from
+``layers.spread_logits`` against the identity head, which hands each
+rank its piece's exact columns; each rank's ``v0`` held to the
+model-major order). Vp = 44 with vocab sizes
+40 (the pad inside the last shard) and 30
 (on (1, 4) the pad straddles the last two shards; on (1, 3), 44 cut 15,
 15, 14, it is the whole last shard), and Vp = 9 on (1, 4), cut 3, 3, 3,
 0 (an empty shard). The labels fall on every shard. The loss is the sum
@@ -65,6 +70,12 @@ CASES = {
     "1x4_empty_shard": (4, (1, 4), "model", 9, 7),
     "1x3_uneven": (3, (1, 3), "model", 44, 40),
     "1x3_last_shard_padded": (3, (1, 3), "model", 44, 30),
+    # (pod, data, model): the vocab cut model-major into every rank's piece
+    # (``layers.spread_logits``) over "model" and then the rows' axes, which
+    # follow it: pod x data (the head's D brought together by an all-to-all
+    # over data), or pod alone (D all-gathered over data)
+    "1x2x2_model_major": (4, (1, 2, 2), ("model", "pod", "data"), 44, 30),
+    "2x2x1_rows_on_pod": (4, (2, 2, 1), ("model", "pod"), 44, 40),
 }
 # the embedding lookup on a vocab-sharded table (Vp, LOOKUP_D):
 # name -> (world, mesh (data, model), the vocab's mesh axes, the D's, Vp, vocab size)
@@ -92,12 +103,50 @@ def _rows_axis(mesh: tuple, vocab_axes):
     return "data" if "data" not in used and mesh[0] > 1 else None
 
 
+def _axes(shape) -> tuple:
+    """The mesh axes of a mesh of ``shape``."""
+    return ("pod", "data", "model")[-len(shape):]
+
+
+def pieces_ce(mesh, vocab_axes, inputs: dict, vocab: int) -> dict:
+    """The weighted CE of ``inputs``' logits as ``VocabPieces``: the logits,
+    rows on ``vocab_axes[1:]``, through ``layers.spread_logits`` against the
+    identity head (vocab on model, D on data), which hands each rank the
+    exact columns of its model-major piece; the gradient is the logits'.
+    Also each rank's mesh coordinate, piece offset ``v0`` and width."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.layers import spread_logits
+    from repro_torch.parallel.mesh import P, to_placements
+    logits = torch.as_tensor(inputs["logits"])
+    vp = logits.shape[-1]
+    rows = tuple(vocab_axes[1:])
+    x = distribute_tensor(logits, mesh, to_placements(mesh, P(rows, None, None), 3),
+                          src_data_rank=None).requires_grad_(True)
+    eye = distribute_tensor(torch.eye(vp), mesh, to_placements(mesh, P("model", "data"), 2),
+                            src_data_rank=None)
+    row_pl = to_placements(mesh, P(rows, None), 2)
+    labels, weights = (distribute_tensor(torch.as_tensor(inputs[k]), mesh, row_pl,
+                                         src_data_rank=None) for k in ("labels", "weights"))
+    pieces = spread_logits(x, eye)
+    loss = softmax_cross_entropy(pieces, labels, vocab)
+    (grad,) = torch.autograd.grad((loss * weights).sum().full_tensor(), x)
+    pieces_of = [None] * dist.get_world_size()
+    dist.all_gather_object(pieces_of, (list(mesh.get_coordinate()), pieces.v0,
+                                       pieces.local.shape[-1]))
+    return {"loss": loss.full_tensor().detach().numpy(), "grad": grad.full_tensor().numpy(),
+            "grad_placements": str(tuple(grad.placements)),
+            "placements": str(tuple(x.placements)), "pieces": pieces_of}
+
+
 def sharded_ce(mesh, vocab_axes, inputs: dict, vocab: int) -> dict:
     """The weighted CE of ``inputs`` with the logits placed on ``mesh``
     (rows on ``_rows_axis``, the vocab on ``vocab_axes``): each rank's
     whole loss rows and gradient, and the gradient's placements."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.parallel.mesh import P, to_placements
+    if mesh.ndim == 3:
+        return pieces_ce(mesh, vocab_axes, inputs, vocab)
     rows = _rows_axis(tuple(mesh.shape), vocab_axes)
     x = distribute_tensor(torch.as_tensor(inputs["logits"]), mesh,
                           to_placements(mesh, P(rows, None, vocab_axes), 3),
@@ -178,7 +227,7 @@ def worker(rank: int, tmp: Path) -> None:
     for name, (w, shape, vocab_axes, vp, vocab) in CASES.items():
         if w != world:
             continue
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=_axes(shape))
         out[name] = sharded_ce(mesh, vocab_axes, _inputs(vp, vocab), vocab)
     for name, (w, shape, vocab_axes, d_axes, vp, vocab) in LOOKUP_CASES.items():
         if w != world:
@@ -248,6 +297,29 @@ def check_case(out: dict, name: str, ref: dict) -> None:
         assert np.array_equal(got["grad"], single["grad"])
 
 
+@pytest.mark.parametrize("name", [n for n, c in CASES.items() if len(c[1]) == 3])
+def test_model_major_pieces_lie_in_each_ranks_model_slice(worlds, name):
+    """Rank (p, d, m) takes piece ``k`` of its model slice, ``k`` its
+    coordinates on the rows' axes (pod major): on (1, 2, 2), 44 columns cut
+    in slices of 22 on model and pieces of 11, ``v0 = 22·m + 11·(p·D + d)``
+    where DTensor's order would give ``11·(p·D·M + d·M + m)``; on (2, 2, 1)
+    the rows on pod alone, ``v0 = 22·p`` on both data ranks."""
+    _, shape, vocab_axes, vp, _ = CASES[name]
+    sizes = dict(zip(_axes(shape), shape))
+    slice_ = -(-vp // sizes["model"])
+    piece = -(-slice_ // int(np.prod([sizes[a] for a in vocab_axes[1:]])))
+    seen = set()
+    for coord, v0, width in worlds[name]["pieces"]:
+        at = dict(zip(_axes(shape), coord))
+        k = 0
+        for a in vocab_axes[1:]:
+            k = k * sizes[a] + at[a]
+        assert (v0, width) == (at["model"] * slice_ + k * piece, piece), (coord, v0)
+        seen.add(v0)
+    parts = int(np.prod([sizes[a] for a in vocab_axes]))
+    assert seen == {k * piece for k in range(parts)}
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_ce_matches_single_process(worlds, name):
     _, _, _, vp, vocab = CASES[name]
@@ -313,7 +385,7 @@ def test_labels_fall_on_every_shard():
         if vocab_axes is None:
             continue
         axes = (vocab_axes,) if isinstance(vocab_axes, str) else vocab_axes
-        parts = int(np.prod([dict(zip(("data", "model"), shape))[a] for a in axes]))
+        parts = int(np.prod([dict(zip(_axes(shape), shape))[a] for a in axes]))
         piece = -(-vp // parts)
         shards = {int(v) // piece for v in _inputs(vp, vocab)["labels"].ravel()}
         assert shards == {r for r in range(parts) if r * piece < vocab}, (name, shards)
@@ -425,6 +497,9 @@ def card_check(tmp: Path) -> None:
     out = run_worlds(tmp)
     for name, (_, _, _, vp, vocab) in CASES.items():
         check_case(out, name, single_ce(_inputs(vp, vocab), vocab))
+    for name, case in CASES.items():
+        if len(case[1]) == 3:
+            test_model_major_pieces_lie_in_each_ranks_model_slice(out, name)
     for name in LOOKUP_CASES:
         check_lookup(out, name, single_lookup(_lookup_inputs(*LOOKUP_CASES[name][4:])))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -201,6 +201,115 @@ def test_apply_updates_matches_jax(grad_scale):
                                            atol=1e-6, rtol=1e-6)
 
 
+def _unfused_apply_updates(state, grads, cfg):
+    """``apply_updates`` as the port wrote it before its terms went in place:
+    a new tensor for each term (the reference the fused one must equal bit
+    for bit)."""
+    gnorm = ta.global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step = state.step + 1
+    lr = ta.schedule(step, cfg)
+    b1c = 1 - cfg.b1 ** step.float()
+    b2c = 1 - cfg.b2 ** step.float()
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * g.square()
+        mhat = m / b1c
+        vhat = v / b2c
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        if p.dim() >= 2:
+            delta = delta + cfg.weight_decay * p.float()
+        return (p.float() - lr * delta).to(p.dtype), m, v
+
+    out = tree_map(upd, state.params, grads, state.m, state.v)
+    pick = [tree_map(lambda t: t[i], out, is_leaf=lambda x: isinstance(x, tuple))
+            for i in range(3)]
+    return ta.TrainState(*pick, step), {"lr": lr, "grad_norm": gnorm}
+
+
+def _stacked_tree(seed, scale=1.0):
+    """f32 and bf16 leaves: stacked (L, a, b), 2-d, 1-d and a scalar."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(*shape, dtype=torch.float32):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dtype)
+    return {"blocks": {"w1": leaf(6, 8, 5), "wo": leaf(5, 4, 3, dtype=torch.bfloat16),
+                       "ln": leaf(6, 8)},
+            "embed": leaf(30, 7), "head": leaf(12, 7, dtype=torch.bfloat16),
+            "bias": leaf(9), "norm": leaf(9, dtype=torch.bfloat16),
+            "gate": leaf(1).reshape(())}
+
+
+def _jax_tree(tree):
+    return {k: _jax_tree(v) if isinstance(v, dict) else jnp.asarray(
+        v.float().numpy(), jnp.bfloat16 if v.dtype == torch.bfloat16 else jnp.float32)
+        for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("slice_bytes", [None, 64])          # whole leaves; 4 slices each
+def test_apply_updates_equals_the_unfused_formula(monkeypatch, slice_bytes):
+    """At steps 1-3 (the third with gradients large enough to clip), the
+    update written in place, whole or in ``_SLICES`` slices, is bit-equal
+    to the unfused formula, and within 1e-6 of JAX's ``apply_updates``;
+    handed over (``free_grads``), the gradients' tree is emptied and the
+    result is the same."""
+    if slice_bytes is not None:
+        monkeypatch.setattr(ta, "_SLICE_BYTES", slice_bytes)
+    cfg = dict(lr=1e-2, warmup_steps=2, total_steps=10)
+    params = _stacked_tree(1)
+    fused = unfused = ta.init_state(params)
+    js = ja.init_state(_jax_tree(params))
+    for i in range(3):
+        grads = _stacked_tree(10 + i, 30.0 if i == 2 else 0.01)
+        unfused, umet = _unfused_apply_updates(unfused, grads, ta.OptConfig(**cfg))
+        handed = tree_map(lambda t: t, grads)
+        fused, fmet = ta.apply_updates(fused, handed, ta.OptConfig(**cfg), free_grads=True)
+        assert handed == {}, handed
+        js, _ = ja.apply_updates(js, _jax_tree(grads), ja.OptConfig(**cfg))
+        assert (float(fmet["grad_norm"]) > 1.0) == (i == 2)      # the clip is active at step 3
+        for field in ("params", "m", "v"):
+            for a, b, j in zip(tree_leaves(getattr(unfused, field)),
+                               tree_leaves(getattr(fused, field)),
+                               jax.tree.leaves(getattr(js, field))):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                assert torch.equal(a, b), (i, field)
+                np.testing.assert_allclose(_np(b), np.asarray(j, np.float32),
+                                           atol=1e-6, rtol=1e-6)
+
+
+def _traced_update(update, param_dtype):
+    """The live-storage high-water mark of one AdamW update of qwen2-0.5b's
+    meta train state (no storage: the trace counts the storages the update
+    makes), the new state's bytes, and the largest leaf's f32 bytes."""
+    from repro_torch.launch.trace_analysis import TraceAnalysis
+    model = build(get_config("qwen2-0.5b"), RunConfig(device="meta", param_dtype=param_dtype))
+    state = ta.init_state(model.init_eval_shape())
+    grads = tree_map(torch.empty_like, state.params)
+    with TraceAnalysis() as trace:
+        new, _ = update(state, grads, ta.OptConfig())
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(new))
+    largest = max(t.numel() for t in tree_leaves(state.params)) * 4
+    return trace.stats.peak_live_bytes, nbytes, largest
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_apply_updates_holds_the_new_state_and_one_scratch_buffer(param_dtype):
+    """qwen2-0.5b's update (its 136 M-row embedding the largest leaf) holds
+    at its peak the new state and at most one f32 buffer the size of the
+    largest leaf: a slice's scratch (two for a bf16 param). The unfused
+    formula held four whole leaves more."""
+    dtype = getattr(torch, param_dtype)
+    peak, state, largest = _traced_update(ta.apply_updates, dtype)
+    old_peak, _, _ = _traced_update(_unfused_apply_updates, dtype)
+    print(f"{param_dtype} params: peak {peak / 1e9:.3f} GB, new state {state / 1e9:.3f} GB, "
+          f"largest leaf in f32 {largest / 1e9:.3f} GB; unfused peak {old_peak / 1e9:.3f} GB")
+    assert peak <= state + largest, (peak, state, largest)
+    assert old_peak > state + 3 * largest, (old_peak, state, largest)
+
+
 def test_init_state_is_f32_zeros_and_int32_step():
     ts = ta.init_state(params_from_jax(_opt_tree(6), device="cpu"))
     assert ts.step.dtype == torch.int32 and int(ts.step) == 0
