@@ -1,0 +1,7 @@
+"""Device ms a train step spends under the autograd nodes of K1's
+backward (``FlashAttentionFnBackward``: the plain tensor-op backward)."""
+
+
+def read(view):
+    device_s = view.kernel_s_under(view.node_events("FlashAttentionFnBackward"))
+    return device_s * 1e3 / view.steps if device_s > 0 else None
