@@ -5,6 +5,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models import transformer
 from repro_torch.models.layers import RunConfig, resolve_device
 
@@ -57,18 +58,21 @@ class Model:
 
     # -- serving ----------------------------------------------------------
     def prefill(self, params, batch):
-        logits, _, cache = self.apply(params, batch, return_cache=True,
-                                      last_only=True)
+        """Inside the span ``prefill``."""
+        with trace.span("prefill"):
+            logits, _, cache = self.apply(params, batch, return_cache=True,
+                                          last_only=True)
         return logits, cache
 
     def decode(self, params, cache, batch):
         """One token (``embeds`` (B, 1, D) for audio) against ``cache``;
-        writes the cache in place."""
-        if self.cfg.frontend == "audio":
-            return transformer.decode_step(params, self.cfg, self.rc, cache, None,
-                                           embeds=batch["embeds"])
-        return transformer.decode_step(params, self.cfg, self.rc, cache,
-                                       batch["tokens"])
+        writes the cache in place. Inside the span ``decode``."""
+        with trace.span("decode"):
+            if self.cfg.frontend == "audio":
+                return transformer.decode_step(params, self.cfg, self.rc, cache, None,
+                                               embeds=batch["embeds"])
+            return transformer.decode_step(params, self.cfg, self.rc, cache,
+                                           batch["tokens"])
 
     def init_cache(self, batch: int, max_len: int):
         return transformer.init_cache(self.cfg, self.rc, batch, max_len)

@@ -34,6 +34,9 @@ gradient is reduce-scattered there, as XLA does inside the JAX package's
 layer scan; a checkpointed block saves its rank's cut of the carry
 (``_maybe_remat``); the embedding lookup reads each rank's vocab rows
 (``layers.vocab_sharded_lookup``).
+
+While a profiler records, spans (``repro_torch.trace``) mark each block,
+remat's recompute, the head, the CE and the head's backward.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import trace
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -322,7 +326,8 @@ def _maybe_remat(fn, rc: RunConfig):
                                              list(_DOTS))
 
     def block(bp, h):
-        return fn(bp, rc.constrain(h, _carry_axes(rc)))
+        with trace.recompute():
+            return fn(bp, rc.constrain(h, _carry_axes(rc)))
 
     def remat(bp, h):
         if not torch.is_grad_enabled():
@@ -347,8 +352,15 @@ def _logits(params, h, cfg, rc: Optional[RunConfig] = None, vocab_pieces: bool =
     a row. Those logits come back as ``VocabPieces`` where the caller asks
     for them (``vocab_pieces``: the loss), else gathered into each vocab
     slice of the head. Either way the head's gradient comes back in its
-    placements.
+    placements. Inside the span ``head``; under a gradient ``h`` closes
+    ``head.bwd`` (``trace.head_input``).
     """
+    with trace.span("head"):
+        h, bwd = trace.head_input(h)
+        return trace.head_output(_head(params, h, cfg, rc, vocab_pieces), bwd)
+
+
+def _head(params, h, cfg, rc, vocab_pieces):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     if uneven_rows(h) and isinstance(head, DTensor):
@@ -451,14 +463,16 @@ def _attn_forward(params, cfg, rc, h, positions, img, return_cache):
     ci = 0
     for a, b, cross in segs:
         for i in range(a, b):
-            h, kv, layer_aux = attn_block(blocks[i], h)
+            with trace.span("block"):
+                h, kv, layer_aux = attn_block(blocks[i], h)
             if layer_aux is not None:
                 aux = aux + layer_aux
             if return_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
         if cross:
-            h, xkv = _apply_cross_block(cross_blocks[ci], h, cfg, rc, img)
+            with trace.span("block"):
+                h, xkv = _apply_cross_block(cross_blocks[ci], h, cfg, rc, img)
             if return_cache:
                 xks.append(xkv[0])
                 xvs.append(xkv[1])
@@ -483,12 +497,14 @@ def _mamba_forward(params, cfg, rc, h, positions, return_cache):
     ks, vs, states = [], [], []
     for a, b, shared in _mamba_segments(cfg):
         for i in range(a, b):
-            h, st = mamba_block(blocks[i], h)
+            with trace.span("block"):
+                h, st = mamba_block(blocks[i], h)
             if return_cache:
                 states.append(st)
         if shared:
-            h, kv, _ = _apply_attn_block(shared_block, h, cfg, rc,
-                                         positions, return_kv=return_cache)
+            with trace.span("block"):
+                h, kv, _ = _apply_attn_block(shared_block, h, cfg, rc,
+                                             positions, return_kv=return_cache)
             if return_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
@@ -557,14 +573,16 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: Optional[torch.Tensor
         app = 0
         for a, b, shared in _mamba_segments(cfg):
             for i in range(a, b):
-                h, st = _apply_mamba_block(blocks[i], h, cfg, rc,
-                                           state=ssm_lib.SSMState(*(t[i] for t in states)))
+                with trace.span("block"):
+                    h, st = _apply_mamba_block(blocks[i], h, cfg, rc,
+                                               state=ssm_lib.SSMState(*(t[i] for t in states)))
                 for dst, src in zip(states, st):
                     ssm_lib.write_layer(dst, i, src)
             if shared:
-                h, _, _ = _apply_attn_block(shared_block, h, cfg, rc, positions,
-                                            cache=(cache["k"][app], cache["v"][app]),
-                                            cache_index=index)
+                with trace.span("block"):
+                    h, _, _ = _apply_attn_block(shared_block, h, cfg, rc, positions,
+                                                cache=(cache["k"][app], cache["v"][app]),
+                                                cache_index=index)
                 app += 1
     else:
         segs = (_segments(cfg.n_layers, cfg.cross_attn_every) if cfg.family == "vlm"
@@ -574,12 +592,14 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: Optional[torch.Tensor
         ci = 0
         for a, b, cross in segs:
             for i in range(a, b):
-                h, _, _ = _apply_attn_block(blocks[i], h, cfg, rc,
-                                            positions, cache=(cache["k"][i], cache["v"][i]),
-                                            cache_index=index)
+                with trace.span("block"):
+                    h, _, _ = _apply_attn_block(blocks[i], h, cfg, rc, positions,
+                                                cache=(cache["k"][i], cache["v"][i]),
+                                                cache_index=index)
             if cross:
-                h, _ = _apply_cross_block(cross_blocks[ci], h, cfg, rc,
-                                          None, cache=(cache["xk"][ci], cache["xv"][ci]))
+                with trace.span("block"):
+                    h, _ = _apply_cross_block(cross_blocks[ci], h, cfg, rc, None,
+                                              cache=(cache["xk"][ci], cache["xv"][ci]))
                 ci += 1
 
     new_cache = dict(cache)
@@ -591,8 +611,12 @@ def decode_step(params, cfg, rc: RunConfig, cache, tokens: Optional[torch.Tensor
 # Loss
 # ---------------------------------------------------------------------------
 def lm_loss(logits, labels, cfg, aux=None, aux_weight: float = 0.01):
-    """Mean next-token CE over (B, S), plus ``aux_weight * aux`` when given."""
-    ce = softmax_cross_entropy(logits, labels, cfg.vocab_size).mean()
-    if aux is not None:
-        ce = ce + aux_weight * aux
-    return ce
+    """Mean next-token CE over (B, S), plus ``aux_weight * aux`` when given.
+    The CE (not the aux loss) seeds ``head.bwd`` where the logits carry one
+    (``trace.loss_seed``)."""
+    with trace.span("ce"):
+        ce = trace.loss_seed(softmax_cross_entropy(logits, labels, cfg.vocab_size).mean(),
+                             logits)
+        if aux is not None:
+            ce = ce + aux_weight * aux
+        return ce

@@ -28,6 +28,7 @@ import torch
 
 from torch.distributed.tensor import DTensor
 
+from repro_torch import trace
 from repro_torch.parallel.mesh import from_local
 from repro_torch.tree import tree_clear, tree_leaves, tree_map, tree_unflatten
 
@@ -151,35 +152,37 @@ def apply_updates(state: TrainState, grads, cfg: OptConfig, *, free_grads: bool 
     ``grads`` over (a tree of its own, which it reads no more): its
     containers are emptied and each gradient is let go once its leaf is
     updated, so the step holds no gradient beside the whole new state.
+    Inside the span ``adamw``.
     """
-    g_leaves = tree_leaves(grads)
-    gnorm = global_norm(g_leaves)
-    if free_grads:
-        tree_clear(grads)
-    del grads
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
-    lr = schedule(step, cfg)
-    b1c = 1 - cfg.b1 ** step.float()
-    b2c = 1 - cfg.b2 ** step.float()
-    k = (_local(scale), _local(lr), _local(b1c), _local(b2c), cfg)
-
-    out = ([], [], [])
-    for i, (p, m, v) in enumerate(zip(tree_leaves(state.params), tree_leaves(state.m),
-                                      tree_leaves(state.v))):
-        g = g_leaves[i]
+    with trace.span("adamw"):
+        g_leaves = tree_leaves(grads)
+        gnorm = global_norm(g_leaves)
         if free_grads:
-            g_leaves[i] = None
-        if isinstance(p, DTensor):
-            mesh, pl = p.device_mesh, p.placements
-            g, m, v = (x.redistribute(mesh, pl) for x in (g, m, v))
-            new = _update_leaf(p.to_local(), g.to_local(), m.to_local(), v.to_local(), k)
-            new = [from_local(x, mesh, pl, p.shape) for x in new]
-        else:
-            new = _update_leaf(p, g, m, v, k)
-        del g
-        for acc, x in zip(out, new):
-            acc.append(x)
-    params, m, v = (tree_unflatten(getattr(state, f), x)
-                    for f, x in zip(("params", "m", "v"), out))
-    return TrainState(params, m, v, step), {"lr": lr, "grad_norm": gnorm}
+            tree_clear(grads)
+        del grads
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        step = state.step + 1
+        lr = schedule(step, cfg)
+        b1c = 1 - cfg.b1 ** step.float()
+        b2c = 1 - cfg.b2 ** step.float()
+        k = (_local(scale), _local(lr), _local(b1c), _local(b2c), cfg)
+
+        out = ([], [], [])
+        for i, (p, m, v) in enumerate(zip(tree_leaves(state.params), tree_leaves(state.m),
+                                          tree_leaves(state.v))):
+            g = g_leaves[i]
+            if free_grads:
+                g_leaves[i] = None
+            if isinstance(p, DTensor):
+                mesh, pl = p.device_mesh, p.placements
+                g, m, v = (x.redistribute(mesh, pl) for x in (g, m, v))
+                new = _update_leaf(p.to_local(), g.to_local(), m.to_local(), v.to_local(), k)
+                new = [from_local(x, mesh, pl, p.shape) for x in new]
+            else:
+                new = _update_leaf(p, g, m, v, k)
+            del g
+            for acc, x in zip(out, new):
+                acc.append(x)
+        params, m, v = (tree_unflatten(getattr(state, f), x)
+                        for f, x in zip(("params", "m", "v"), out))
+        return TrainState(params, m, v, step), {"lr": lr, "grad_norm": gnorm}

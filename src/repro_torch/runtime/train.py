@@ -25,6 +25,7 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Shard
 
+from repro_torch import trace
 from repro_torch.models import Model, RunConfig, build
 from repro_torch.optim.adamw import OptConfig, TrainState, apply_updates, init_state
 from repro_torch.parallel import compression as comp_lib
@@ -60,9 +61,9 @@ def value_and_grad(loss_fn, params, batch) -> Tuple[torch.Tensor, Dict]:
     the loss does not reach gets zeros, as ``jax.grad`` gives. A DTensor
     loss is made whole (``full_tensor``) before the backward, so every
     rank seeds it with 1; the grads are then DTensors in whatever
-    placements the backward left them.
+    placements the backward left them. Inside the span ``loss_and_grad``.
     """
-    with torch.enable_grad():
+    with trace.span("loss_and_grad"), torch.enable_grad():
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss = loss_fn(live, batch)
         if isinstance(loss, DTensor):
@@ -162,37 +163,39 @@ def make_train_step(model: Model, trc: TrainRunConfig):
     Every metric is a device tensor (no host sync). On DTensors, each
     gradient is placed like its param before the int8 hook and AdamW, and
     the metrics are made whole. The step hands its gradients to AdamW,
-    which lets each go once its leaf is updated.
+    which lets each go once its leaf is updated. A step is the span
+    ``train_step``.
     """
 
     def train_step(state: TrainState, batch):
-        if trc.grad_accum > 1:
-            a = trc.grad_accum
-            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
-            lsum = torch.zeros((), dtype=torch.float32, device=state.step.device)
-            for i in range(a):
-                loss, g = value_and_grad(model.loss, state.params,
-                                         {k: micro_batch(v, a, i) for k, v in batch.items()})
-                for s, x, p in zip(tree_leaves(grads), tree_leaves(g),
-                                   tree_leaves(state.params)):
-                    s.add_(_like_param(x, p))
-                del g
-                lsum = lsum + loss
-            for s in tree_leaves(grads):
-                s.div_(a)
-            loss = lsum / a
-        else:
-            loss, grads = value_and_grad(model.loss, state.params, batch)
-            grads = tree_map(_like_param, grads, state.params)
+        with trace.span("train_step"):
+            if trc.grad_accum > 1:
+                a = trc.grad_accum
+                grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
+                lsum = torch.zeros((), dtype=torch.float32, device=state.step.device)
+                for i in range(a):
+                    loss, g = value_and_grad(model.loss, state.params,
+                                             {k: micro_batch(v, a, i) for k, v in batch.items()})
+                    for s, x, p in zip(tree_leaves(grads), tree_leaves(g),
+                                       tree_leaves(state.params)):
+                        s.add_(_like_param(x, p))
+                    del g
+                    lsum = lsum + loss
+                for s in tree_leaves(grads):
+                    s.div_(a)
+                loss = lsum / a
+            else:
+                loss, grads = value_and_grad(model.loss, state.params, batch)
+                grads = tree_map(_like_param, grads, state.params)
 
-        if trc.compression == "int8":
-            grads = comp_lib.quantize_dequantize_int8(grads)
+            if trc.compression == "int8":
+                grads = comp_lib.quantize_dequantize_int8(grads)
 
-        with torch.no_grad():
-            new_state, metrics = apply_updates(state, grads, trc.opt, free_grads=True)
-        metrics = {k: whole(v) for k, v in metrics.items()}
-        metrics["loss"] = loss
-        return new_state, metrics
+            with torch.no_grad():
+                new_state, metrics = apply_updates(state, grads, trc.opt, free_grads=True)
+            metrics = {k: whole(v) for k, v in metrics.items()}
+            metrics["loss"] = loss
+            return new_state, metrics
 
     return train_step
 
