@@ -19,9 +19,10 @@ intervals), the idle share, the kernel count and the kernels with the
 most device time; for the forward and backward also the operators with
 the most device time (the stacked blocks' per-layer index backward
 shows there as bf16 fills and adds of full-size stacked gradients),
-and the device time inside each kernel's tensor-op backward
+and the device time inside each kernel's backward
 (``SSDScanFnBackward``: ``ssd_chunked`` recomputed and its autograd;
-``FlashAttentionFnBackward``: ``ref.attention_bwd``), a layer and its
+``FlashAttentionFnBackward``: K1's backward kernel, or
+``ref.attention_bwd`` for f32 and hd 256), a layer and its
 share of the window. Every window runs with ``profile_serve.moe_ranges``,
 so a MoE's forward and backward window also splits out, under the
 gradient, its routing (``moe.route``) and its dispatch + combine products

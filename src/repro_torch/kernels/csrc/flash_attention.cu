@@ -1,4 +1,4 @@
-// K1: flash attention forward, hand-written for Hopper (sm_90a).
+// K1: flash attention forward and its backward, hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::_kernel
 // (launched by flash_attention() there). Same function: q (B, S, H, hd),
@@ -15,6 +15,10 @@
 // causal mask: one rank's block of rows under q-sequence tensor
 // parallelism, against the full K/V (0 = the unsharded call). It moves
 // the causal bound, the skip of dead tiles and the mask alike.
+//
+// Under a gradient flash_mma_kernel also writes each row's log-sum-exp of
+// the scaled scores, (m + log2 l) ln 2 in f32, (B, H, S), for the backward;
+// without one (prefill, decode, eval) it gets a null pointer and writes none.
 //
 // bf16 design (flash_mma_kernel, the serving path):
 //   * one CTA of 4 warps per (b * h, 64-row q tile), each warp owning 16
@@ -69,9 +73,56 @@
 // the 989 TFLOP/s of wgmma; wgmma, TMA and warp specialisation are later
 // work.
 
+// Backward (k1_bwd_dq_kernel, k1_bwd_dkdv_kernel, k1_bwd_gsum_kernel; bf16,
+// hd 32, 64 and 128). It replaces no TPU kernel: the Pallas K1 is
+// forward-only and the JAX model trains through XLA's autodiff of its jnp
+// attention, which runs bf16 products. The port's first backward was
+// tensor ops (kernels/ref.py::attention_bwd): the whole (B, H, S, T)
+// score, P, dP and dS in f32, k and v copied to every head, f32 GEMMs over
+// the masked triangle too; at qwen2-1.5b's train shape (B=4, S=T=2048,
+// H=12, K=2, hd 128, causal) 10.1 ms a layer, 41% of the train step. This
+// is the same mathematics as XLA's bf16 autodiff: bf16 operands, f32
+// accumulation, P and dS rounded to bf16 only to feed the tensor cores.
+//   dV = P^T dO, dP = dO V^T, dS = P (dP - delta), delta = rowsum(dO O),
+//   dQ = scale dS K, dK = scale dS^T Q, P = 2^(S scale log2 e - lse log2 e).
+// Bound at that shape: the five products (S again, dV, dP, dQ, dK) over
+// the live pairs are 10 hd FLOPs a pair, 1.29e11 a layer: 0.130 ms at 989
+// TFLOP/s (3.65 ms a step of 28 layers); bytes (q, o, dO, dq 4 x 25 MB, k,
+// v, dk, dv 4 x 4 MB) 0.035 ms. So it is bound by operations. The design:
+//   * two passes, each shaped like the forward (4 warps of 16 rows, 64-row
+//     tiles, mma.sync.m16n8k16 with ldmatrix / ldmatrix.trans fragments, a
+//     two-stage cp.async ring, dead tiles skipped, masks only on tiles that
+//     cross the diagonal or a ragged edge, base-2 exponents);
+//   * k1_bwd_dq_kernel: a CTA per (b * h, q tile), heaviest first, walks the
+//     key tiles its rows see: S = Q K^T and dP = dO V^T from the saved
+//     log-sum-exp, dQ += dS K in registers. It also computes delta from o
+//     and dO while its first copies fly, and writes each row's base-2
+//     log-sum-exp and delta, padded to 64 rows (+inf and 0 past S, so P is
+//     0 there), for the second pass;
+//   * k1_bwd_dkdv_kernel: a CTA per (b * h, key tile), heaviest (first)
+//     first, walks the q tiles that see its keys, from the diagonal on. It
+//     computes the transposed scores S^T = K Q^T and dP^T = V dO^T, so that
+//     P^T and dS^T come out of the accumulators as the A fragments of
+//     dV += P^T dO and dK += dS^T Q, with no trip through shared memory;
+//     dK and dV stay in f32 registers (128 a thread at hd 128);
+//   * dQ is deterministic by construction: the separate pass over q tiles
+//     recomputes S and dP (seven products where five are the minimum, 1.4x
+//     the operations) instead of float atomics, whose order changes from
+//     run to run. Two backwards are bit-equal;
+//   * GQA: a CTA per query head (not per KV head looping over its G heads:
+//     under the causal mask the first key tiles carry 32x the last's work,
+//     and 256 such CTAs at the train shape balance poorly on 132 SMs), so
+//     dK and dV of a KV head's G heads are written as f32 partials (B, T,
+//     H, hd) and k1_bwd_gsum_kernel sums them in head order (50 + 50 MB
+//     written and read at the train shape, about 0.04 ms); with G = 1 the
+//     dK/dV pass writes bf16 directly;
+//   * hd 256 is not covered: a warp's dK and dV accumulators alone would
+//     take 256 registers a thread; it keeps ref.attention_bwd, as f32 does.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
@@ -87,6 +138,7 @@ constexpr int MMA_BQ = 64;         // so 64 query rows per CTA,
 constexpr int BK_WIDE = 32;        // keys per K/V tile at hd 256 (64 below it)
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 2^x on the special-function unit (the softmax works in base 2: e^x = 2^(x log2 e)).
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -119,7 +171,8 @@ template <int HD>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 int S, int Tk, int H, int K, float scale, int causal, int q_off) {
+                 float* __restrict__ lse, int S, int Tk, int H, int K, float scale, int causal,
+                 int q_off) {
   constexpr int BK = kv_tile<HD>();
   constexpr bool QREG = q_in_registers<HD>();
   constexpr int LD = HD + 8;     // shared row stride in elements: 16 B of skew per row
@@ -290,7 +343,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     float l = lsum[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-30f);
+    l = fmaxf(l, 1e-30f);
+    inv[r] = 1.f / l;
+    // under a gradient: the row's log-sum-exp of the scaled scores, natural log
+    const int row = row0 + g + 8 * r;
+    if (lse != nullptr && t4 == 0 && row < S)
+      lse[static_cast<size_t>(blockIdx.x) * S + row] = (m[r] + log2f(l)) * LN2;
   }
   __nv_bfloat16* so = sQ + warp * 16 * LD;
 #pragma unroll
@@ -438,8 +496,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int Tk, int H, int K, int is_bf16, int causal, int q_off,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int Tk, int H, int K, int is_bf16, int causal, int q_off,
                    cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD)));
   if (is_bf16) {
@@ -451,7 +509,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     if (err != cudaSuccess) return err;
     kernel<<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Tk, H, K,
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, K,
         scale, causal, q_off);
   } else {
     const dim3 grid(B * H, (S + BQ - 1) / BQ);
@@ -463,28 +521,597 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward: tensor cores (see the backward's note at the top)
+// ---------------------------------------------------------------------------
+constexpr int BWD_THREADS = 128;   // 4 warps of 16 rows (query rows or keys)
+constexpr int BWD_TILE = 64;       // query rows and keys per tile
+
+// Whether a warp holds its A fragments of the tile it owns (q and dO in the
+// dQ kernel, k and v in the dK/dV kernel) in registers for the whole loop;
+// at hd 128 the dK and dV accumulators take 128 registers a thread, and the
+// fragments are read from shared memory at each k-step instead.
+template <int HD>
+__host__ __device__ constexpr bool bwd_frags_in_registers() {
+  return HD <= 64;
+}
+
+// six bf16 tiles of BWD_TILE rows (the owned pair and a two-stage ring of
+// the streamed pair) and two stages of 64 log-sum-exps and 64 deltas
+template <int HD>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  return 6 * BWD_TILE * (HD + 8) * static_cast<int>(sizeof(__nv_bfloat16)) +
+         4 * BWD_TILE * static_cast<int>(sizeof(float));
+}
+
+// The A fragment (16 x 16) of rows [0, 16) and columns [c0, c0 + 16) of a
+// row-major shared tile with row stride LD.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int c0,
+                                       int lane) {
+  mma::ldmatrix_x4(a, tile + (lane & 15) * LD + c0 + (lane >> 4) * 8);
+}
+
+// c[n] += a * B for the NT n-tiles of 8, where B[k][n] = tile[n][c0 + k]
+// (the tile's rows are B's columns: x . rows).
+template <int LD, int NT>
+__device__ __forceinline__ void mma_rows(float (&c)[NT][4], const uint32_t (&a)[4],
+                                         const __nv_bfloat16* tile, int c0, int lane) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t r[4];
+    mma::ldmatrix_x4(r, tile + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + c0 +
+                            ((lane >> 3) & 1) * 8);
+    mma::mma_bf16(c[2 * np], a, r[0], r[1]);
+    mma::mma_bf16(c[2 * np + 1], a, r[2], r[3]);
+  }
+}
+
+// acc[n] += x * tile over the tile's 64 rows, x (16 x 64) held as f32
+// accumulator fragments and rounded to bf16 as A fragments (the layout of
+// an m16n8 result is that of an m16k16 operand, two n-tiles a k-step).
+template <int LD, int NTD>
+__device__ __forceinline__ void mma_acc_by_tile(float (&acc)[NTD][4],
+                                                const float (&x)[BWD_TILE / 8][4],
+                                                const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < BWD_TILE / 16; ++kk) {
+    const uint32_t a[4] = {mma::pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                           mma::pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                           mma::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           mma::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < NTD / 2; ++dp) {
+      uint32_t r[4];
+      mma::ldmatrix_x4_trans(r, tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                    dp * 16 + (lane >> 4) * 8);
+      mma::mma_bf16(acc[2 * dp], a, r[0], r[1]);
+      mma::mma_bf16(acc[2 * dp + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// Copy rows [r0, r0 + BWD_TILE) of a (rows, stride) bf16 array into a shared
+// tile, rows at or past `rows` zero-filled.
+template <int HD>
+__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          size_t stride, int r0, int rows, int tid) {
+  constexpr int LD = HD + 8;
+  constexpr int CPR = HD / 8;
+  for (int i = tid; i < BWD_TILE * CPR; i += BWD_THREADS) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    const bool ok = r0 + r < rows;
+    mma::cp_async16(dst + r * LD + c, ok ? src + (r0 + r) * stride + c : src, ok);
+  }
+}
+
+__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+  float d = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 a = mma::unpack_bf16(xs[j]);
+    const float2 b = mma::unpack_bf16(ys[j]);
+    d += a.x * b.x + a.y * b.y;
+  }
+  return d;
+}
+
+// dQ, and the row statistics the dK/dV kernel reads: one CTA per (b * h,
+// 64-row q tile), heaviest first, each warp owning 16 query rows; it loops
+// over the key tiles its rows see. stats: (2, B * H, S_pad) f32, the rows'
+// log-sum-exps in base 2 (+inf past S, so P = 0 there) and their deltas.
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+k1_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                 const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                 __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int S, int Tk,
+                 int H, int K, int S_pad, float scale, int causal, int q_off) {
+  constexpr int LD = HD + 8;
+  constexpr int CPR = HD / 8;
+  constexpr int NTK = BWD_TILE / 8;   // key n-tiles of S and dP
+  constexpr int NTD = HD / 8;         // head-dim n-tiles of dQ
+  constexpr bool FREG = bwd_frags_in_registers<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BWD_TILE x LD
+  __nv_bfloat16* sG = sQ + BWD_TILE * LD;                            // dO, BWD_TILE x LD
+  __nv_bfloat16* sK = sG + BWD_TILE * LD;                            // 2 stages
+  __nv_bfloat16* sV = sK + 2 * BWD_TILE * LD;                        // 2 stages
+  float* sStat = reinterpret_cast<float*>(sV + 2 * BWD_TILE * LD);  // lse2[64], delta[64]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_TILE;   // heaviest tile first
+  const int row0 = q0 + warp * 16;
+  const int grow0 = q_off + row0;
+  const size_t q_stride = static_cast<size_t>(H) * HD;
+  const size_t kv_stride = static_cast<size_t>(K) * HD;
+  const size_t q_base = (static_cast<size_t>(b) * S * H + h) * HD;
+  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Tk * K + kvh) * HD;
+  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Tk * K + kvh) * HD;
+
+  copy_tile<HD>(sQ, q + q_base, q_stride, q0, S, tid);
+  copy_tile<HD>(sG, dout + q_base, q_stride, q0, S, tid);
+  const int kv_end = causal ? min(Tk, q_off + q0 + BWD_TILE) : Tk;
+  const int n_tiles = (kv_end + BWD_TILE - 1) / BWD_TILE;
+  copy_tile<HD>(sK, kb, kv_stride, 0, Tk, tid);
+  copy_tile<HD>(sV, vb, kv_stride, 0, Tk, tid);
+  mma::cp_async_commit();
+
+  // delta = rowsum(dO * O) and the base-2 log-sum-exp of this warp's rows,
+  // while the copies fly; each row's HD / 8 chunks lie in adjacent lanes
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    const int row = row0 + r;
+    float d = 0.f;
+    if (row < S)
+      d = dot8(*reinterpret_cast<const uint4*>(o + q_base + row * q_stride + c),
+               *reinterpret_cast<const uint4*>(dout + q_base + row * q_stride + c));
+#pragma unroll
+    for (int off = CPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    if (i % CPR == 0) {
+      const float l2 = row < S ? lse[static_cast<size_t>(bh) * S + row] * LOG2E : INFINITY;
+      sStat[warp * 16 + r] = l2;
+      sStat[BWD_TILE + warp * 16 + r] = d;
+      const size_t at = static_cast<size_t>(bh) * S_pad + row;
+      stats[at] = l2;
+      stats[static_cast<size_t>(gridDim.x) * S_pad + at] = d;
+    }
+  }
+  __syncwarp();
+  const float lse2[2] = {sStat[warp * 16 + g], sStat[warp * 16 + g + 8]};
+  const float delta[2] = {sStat[BWD_TILE + warp * 16 + g], sStat[BWD_TILE + warp * 16 + g + 8]};
+
+  uint32_t qf[FREG ? HD / 16 : 1][4];
+  uint32_t gf[FREG ? HD / 16 : 1][4];
+  float acc[NTD][4];
+#pragma unroll
+  for (int d = 0; d < NTD; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const __nv_bfloat16* wq = sQ + warp * 16 * LD;
+  const __nv_bfloat16* wg = sG + warp * 16 * LD;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BWD_TILE;
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      const int st = (it + 1) & 1;
+      copy_tile<HD>(sK + st * BWD_TILE * LD, kb, kv_stride, k0 + BWD_TILE, Tk, tid);
+      copy_tile<HD>(sV + st * BWD_TILE * LD, vb, kv_stride, k0 + BWD_TILE, Tk, tid);
+      mma::cp_async_commit();
+    }
+    if constexpr (FREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          load_a<LD>(qf[kk], wq, kk * 16, lane);
+          load_a<LD>(gf[kk], wg, kk * 16, lane);
+        }
+      }
+    }
+    if (causal && k0 > grow0 + 15) continue;   // warp-uniform: all its rows precede the tile
+    const __nv_bfloat16* tk = sK + (it & 1) * BWD_TILE * LD;
+    const __nv_bfloat16* tv = sV + (it & 1) * BWD_TILE * LD;
+
+    // S = Q K^T, dP = dO V^T
+    float s[NTK][4], dp[NTK][4];
+#pragma unroll
+    for (int n = 0; n < NTK; ++n)
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4], ga[4];
+      if constexpr (FREG) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) { a[j] = qf[kk][j]; ga[j] = gf[kk][j]; }
+      } else {
+        load_a<LD>(a, wq, kk * 16, lane);
+        load_a<LD>(ga, wg, kk * 16, lane);
+      }
+      mma_rows<LD, NTK>(s, a, tk, kk * 16, lane);
+      mma_rows<LD, NTK>(dp, ga, tv, kk * 16, lane);
+    }
+
+    // P = 2^(S scale log2 e - lse2), 0 where masked; dS = P (dP - delta)
+    const bool masked = (k0 + BWD_TILE > Tk) || (causal && k0 + BWD_TILE - 1 > grow0);
+#pragma unroll
+    for (int n = 0; n < NTK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(s[n][e] * scale2 - lse2[e >> 1]);
+        if (masked) {
+          const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+          const int row = grow0 + g + (e >> 1) * 8;
+          if (key >= Tk || (causal && key > row)) p = 0.f;
+        }
+        s[n][e] = p * (dp[n][e] - delta[e >> 1]);
+      }
+    }
+    // dQ += dS K
+    mma_acc_by_tile<LD, NTD>(acc, s, tk, lane);
+  }
+
+  // dq = scale * acc, through this warp's rows of sQ (no other warp reads them)
+  __nv_bfloat16* so = sQ + warp * 16 * LD;
+  __syncwarp();
+#pragma unroll
+  for (int d = 0; d < NTD; ++d) {
+    *reinterpret_cast<uint32_t*>(so + g * LD + d * 8 + 2 * t4) =
+        mma::pack_bf16(acc[d][0] * scale, acc[d][1] * scale);
+    *reinterpret_cast<uint32_t*>(so + (g + 8) * LD + d * 8 + 2 * t4) =
+        mma::pack_bf16(acc[d][2] * scale, acc[d][3] * scale);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    if (row0 + r < S)
+      *reinterpret_cast<uint4*>(dq + q_base + (row0 + r) * q_stride + c) =
+          *reinterpret_cast<const uint4*>(so + r * LD + c);
+  }
+}
+
+// dK and dV of one query head: one CTA per (b * h, 64-key tile), the
+// heaviest (first) key tiles first, each warp owning 16 keys; it loops over
+// the q tiles that see its keys (under the causal mask from the diagonal
+// on), computing the transposed scores so that P^T and dS^T are A
+// fragments in registers. With one query head per KV head (dk_part null)
+// it writes dk, dv in bf16; else f32 partials (B, Tk, H, hd) that
+// k1_bwd_gsum_kernel sums over each KV head's group.
+template <int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+k1_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, float* __restrict__ dk_part,
+                   float* __restrict__ dv_part, int S, int Tk, int H, int K, int S_pad,
+                   float scale, int causal, int q_off) {
+  constexpr int LD = HD + 8;
+  constexpr int CPR = HD / 8;
+  constexpr int NTQ = BWD_TILE / 8;   // query n-tiles of S^T and dP^T
+  constexpr int NTD = HD / 8;         // head-dim n-tiles of dK and dV
+  constexpr bool FREG = bwd_frags_in_registers<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BWD_TILE x LD
+  __nv_bfloat16* sV = sK + BWD_TILE * LD;                            // BWD_TILE x LD
+  __nv_bfloat16* sQ = sV + BWD_TILE * LD;                            // 2 stages
+  __nv_bfloat16* sG = sQ + 2 * BWD_TILE * LD;                        // dO, 2 stages
+  float* sStat = reinterpret_cast<float*>(sG + 2 * BWD_TILE * LD);  // 2 x (lse2, delta)
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / K);
+  const int k0 = blockIdx.y * BWD_TILE;
+  const int kw = k0 + warp * 16;   // this warp's first key
+  const size_t q_stride = static_cast<size_t>(H) * HD;
+  const size_t kv_stride = static_cast<size_t>(K) * HD;
+  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * S * H + h) * HD;
+  const __nv_bfloat16* gb = dout + (static_cast<size_t>(b) * S * H + h) * HD;
+  const size_t kv_base = (static_cast<size_t>(b) * Tk * K + kvh) * HD;
+  const float* lse2b = stats + static_cast<size_t>(bh) * S_pad;
+  const float* deltab = lse2b + static_cast<size_t>(gridDim.x) * S_pad;
+
+  copy_tile<HD>(sK, k + kv_base, kv_stride, k0, Tk, tid);
+  copy_tile<HD>(sV, v + kv_base, kv_stride, k0, Tk, tid);
+  auto load_q = [&](int stage, int qs) {
+    copy_tile<HD>(sQ + stage * BWD_TILE * LD, qb, q_stride, qs, S, tid);
+    copy_tile<HD>(sG + stage * BWD_TILE * LD, gb, q_stride, qs, S, tid);
+    if (tid < 2 * BWD_TILE / 4) {   // 64 lse2 then 64 deltas, 16 bytes a thread
+      const int c = (tid % (BWD_TILE / 4)) * 4;
+      const float* src = (tid < BWD_TILE / 4 ? lse2b : deltab) + qs + c;
+      mma::cp_async16(sStat + stage * 2 * BWD_TILE + (tid / (BWD_TILE / 4)) * BWD_TILE + c,
+                      src, true);
+    }
+  };
+  // the first q row that sees key k0 (every row past the end: none)
+  const int q_begin = causal ? max(0, k0 - q_off) / BWD_TILE * BWD_TILE : 0;
+  const int n_tiles = q_begin < S ? (S - q_begin + BWD_TILE - 1) / BWD_TILE : 0;
+  if (n_tiles > 0) load_q(0, q_begin);
+  mma::cp_async_commit();
+
+  uint32_t kf[FREG ? HD / 16 : 1][4];
+  uint32_t vf[FREG ? HD / 16 : 1][4];
+  float dka[NTD][4], dva[NTD][4];
+#pragma unroll
+  for (int d = 0; d < NTD; ++d)
+    dka[d][0] = dka[d][1] = dka[d][2] = dka[d][3] = dva[d][0] = dva[d][1] = dva[d][2] =
+        dva[d][3] = 0.f;
+  const float scale2 = scale * LOG2E;
+  const __nv_bfloat16* wk = sK + warp * 16 * LD;
+  const __nv_bfloat16* wv = sV + warp * 16 * LD;
+  const bool live = kw < Tk;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int qs = q_begin + it * BWD_TILE;
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      load_q((it + 1) & 1, qs + BWD_TILE);
+      mma::cp_async_commit();
+    }
+    if constexpr (FREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          load_a<LD>(kf[kk], wk, kk * 16, lane);
+          load_a<LD>(vf[kk], wv, kk * 16, lane);
+        }
+      }
+    }
+    // warp-uniform: no key of the warp lies before T and on or below a row of the tile
+    if (!live || (causal && kw > q_off + qs + BWD_TILE - 1)) continue;
+    const __nv_bfloat16* tq = sQ + (it & 1) * BWD_TILE * LD;
+    const __nv_bfloat16* tg = sG + (it & 1) * BWD_TILE * LD;
+    const float* tl = sStat + (it & 1) * 2 * BWD_TILE;
+    const float* td = tl + BWD_TILE;
+
+    // S^T = K Q^T
+    float s[NTQ][4];
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (FREG) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = kf[kk][j];
+      } else {
+        load_a<LD>(a, wk, kk * 16, lane);
+      }
+      mma_rows<LD, NTQ>(s, a, tq, kk * 16, lane);
+    }
+    // P^T = 2^(S^T scale log2 e - lse2 of each query column), 0 where masked
+    const bool masked = (kw + 16 > Tk) || (causal && kw + 15 > q_off + qs);
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(tl + n * 8 + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp2(s[n][e] * scale2 - ((e & 1) ? l2.y : l2.x));
+        if (masked) {
+          const int key = kw + g + (e >> 1) * 8;
+          const int row = q_off + qs + n * 8 + 2 * t4 + (e & 1);
+          if (key >= Tk || (causal && key > row)) p = 0.f;
+        }
+        s[n][e] = p;
+      }
+    }
+    // dV += P^T dO
+    mma_acc_by_tile<LD, NTD>(dva, s, tg, lane);
+    // dP^T = V dO^T
+    float dpt[NTQ][4];
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n) dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (FREG) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = vf[kk][j];
+      } else {
+        load_a<LD>(a, wv, kk * 16, lane);
+      }
+      mma_rows<LD, NTQ>(dpt, a, tg, kk * 16, lane);
+    }
+    // dS^T = P^T (dP^T - delta of each query column)
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(td + n * 8 + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= dpt[n][e] - ((e & 1) ? d2.y : d2.x);
+    }
+    // dK += dS^T Q
+    mma_acc_by_tile<LD, NTD>(dka, s, tq, lane);
+  }
+  mma::cp_async_wait<0>();   // with no q tile to walk, the K/V copy may still fly
+  __syncthreads();
+  if (!live) return;
+
+  if (dk_part == nullptr) {
+    // bf16, through this warp's rows of sK / sV (no other warp reads them)
+    __nv_bfloat16* ok_ = sK + warp * 16 * LD;
+    __nv_bfloat16* ov_ = sV + warp * 16 * LD;
+#pragma unroll
+    for (int d = 0; d < NTD; ++d) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int at = (g + 8 * half) * LD + d * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(ok_ + at) =
+            mma::pack_bf16(dka[d][2 * half] * scale, dka[d][2 * half + 1] * scale);
+        *reinterpret_cast<uint32_t*>(ov_ + at) =
+            mma::pack_bf16(dva[d][2 * half], dva[d][2 * half + 1]);
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * CPR; i += 32) {
+      const int r = i / CPR;
+      const int c = (i % CPR) * 8;
+      if (kw + r < Tk) {
+        const size_t at = kv_base + (kw + r) * kv_stride + c;
+        *reinterpret_cast<uint4*>(dk + at) = *reinterpret_cast<const uint4*>(ok_ + r * LD + c);
+        *reinterpret_cast<uint4*>(dv + at) = *reinterpret_cast<const uint4*>(ov_ + r * LD + c);
+      }
+    }
+  } else {
+    // f32 partials of query head h
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = kw + g + 8 * half;
+      if (key >= Tk) continue;
+      const size_t row = ((static_cast<size_t>(b) * Tk + key) * H + h) * HD;
+#pragma unroll
+      for (int d = 0; d < NTD; ++d) {
+        *reinterpret_cast<float2*>(dk_part + row + d * 8 + 2 * t4) =
+            make_float2(dka[d][2 * half] * scale, dka[d][2 * half + 1] * scale);
+        *reinterpret_cast<float2*>(dv_part + row + d * 8 + 2 * t4) =
+            make_float2(dva[d][2 * half], dva[d][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// dk, dv (B, Tk, K, hd) bf16 = the sums, in head order, of the G query
+// heads' f32 partials (B, Tk, K * G, hd); blockIdx.y picks dk or dv.
+__global__ void k1_bwd_gsum_kernel(const float* __restrict__ dk_part,
+                                   const float* __restrict__ dv_part,
+                                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                   size_t n4, int G, int hd4) {
+  const float4* src = reinterpret_cast<const float4*>(blockIdx.y ? dv_part : dk_part);
+  __nv_bfloat16* dst = blockIdx.y ? dv : dk;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n4;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t row = i / hd4;   // (b * Tk + t) * K + kv head
+    const int d4 = static_cast<int>(i % hd4);
+    const float4* p = src + row * G * hd4 + d4;
+    float4 acc = p[0];
+    for (int j = 1; j < G; ++j) {
+      const float4 x = p[static_cast<size_t>(j) * hd4];
+      acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+    }
+    *reinterpret_cast<uint2*>(dst + i * 4) =
+        make_uint2(mma::pack_bf16(acc.x, acc.y), mma::pack_bf16(acc.z, acc.w));
+  }
+}
+
+// the row count of the backward's statistics: S rounded up to a whole tile
+int bwd_stats_rows(int S) { return (S + BWD_TILE - 1) / BWD_TILE * BWD_TILE; }
+
+template <int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                       float* stats, float* dk_part, float* dv_part, int B, int S, int Tk,
+                       int H, int K, int causal, int q_off, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD)));
+  constexpr int smem = bwd_smem_bytes<HD>();
+  static std::atomic<unsigned long long> dq_configured{0}, dkdv_configured{0};
+  cudaError_t err = mma::set_smem_once(k1_bwd_dq_kernel<HD>, smem, dq_configured);
+  if (err == cudaSuccess)
+    err = mma::set_smem_once(k1_bwd_dkdv_kernel<HD>, smem, dkdv_configured);
+  if (err != cudaSuccess) return err;
+  const int S_pad = bwd_stats_rows(S);
+  k1_bwd_dq_kernel<HD><<<dim3(B * H, S_pad / BWD_TILE), BWD_THREADS, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, static_cast<bf*>(dq),
+      stats, S, Tk, H, K, S_pad, scale, causal, q_off);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k1_bwd_dkdv_kernel<HD><<<dim3(B * H, (Tk + BWD_TILE - 1) / BWD_TILE), BWD_THREADS, smem,
+                           stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const bf*>(dout), stats, static_cast<bf*>(dk), static_cast<bf*>(dv),
+      dk_part, dv_part, S, Tk, H, K, S_pad, scale, causal, q_off);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || H == K) return err;
+  const size_t n4 = static_cast<size_t>(B) * Tk * K * HD / 4;
+  const int blocks = static_cast<int>(std::min<size_t>((n4 + 255) / 256, 132 * 16));
+  k1_bwd_gsum_kernel<<<dim3(blocks, 2), 256, 0, stream>>>(
+      dk_part, dv_part, static_cast<bf*>(dk), static_cast<bf*>(dv), n4, H / K, HD / 4);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, o: contiguous (B, S, H, hd); k, v: contiguous (B, Tk, K, hd) with
 // H % K == 0; all 16-byte aligned device arrays, all float32 (is_bf16 = 0)
 // or all bfloat16 (is_bf16 = 1); hd in {32, 64, 128, 256}; q_off >= 0 the
-// global row of q's first row in the causal mask. Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError()
-// (0 = launched).
+// global row of q's first row in the causal mask; lse null, or (bf16
+// only) a contiguous (B, H, S) float32 array that takes each row's
+// log-sum-exp of the scaled scores. Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() (0 = launched).
 extern "C" int k1_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int Tk, int H, int K, int hd,
-                                      int is_bf16, int causal, int q_off, void* stream) {
-  if (B <= 0 || S <= 0 || Tk <= 0 || H <= 0 || K <= 0 || H % K != 0 || q_off < 0)
+                                      int is_bf16, int causal, int q_off, void* lse,
+                                      void* stream) {
+  if (B <= 0 || S <= 0 || Tk <= 0 || H <= 0 || K <= 0 || H % K != 0 || q_off < 0 ||
+      (lse != nullptr && !is_bf16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 32: return launch<32>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, q_off, st);
-    case 64: return launch<64>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, q_off, st);
-    case 128: return launch<128>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, q_off, st);
-    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, K, is_bf16, causal, q_off, st);
+    case 32: return launch<32>(q, k, v, o, l, B, S, Tk, H, K, is_bf16, causal, q_off, st);
+    case 64: return launch<64>(q, k, v, o, l, B, S, Tk, H, K, is_bf16, causal, q_off, st);
+    case 128: return launch<128>(q, k, v, o, l, B, S, Tk, H, K, is_bf16, causal, q_off, st);
+    case 256: return launch<256>(q, k, v, o, l, B, S, Tk, H, K, is_bf16, causal, q_off, st);
     default: return cudaErrorInvalidValue;
   }
 }
+
+// The bf16 backward of the forward above: q, o, dout, dq (B, S, H, hd);
+// k, v, dk, dv (B, Tk, K, hd); lse (B, H, S) f32 from the forward; all
+// contiguous, 16-byte aligned, hd in {32, 64, 128}. Scratch the caller
+// allocates: stats (2, B * H, k1_bwd_stats_rows(S)) f32 and, when H > K, dk_part and dv_part (B, Tk, H, hd) f32 (null when
+// H == K). Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (0 = launched).
+extern "C" int k1_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                      const void* o, const void* dout, const void* lse,
+                                      void* dq, void* dk, void* dv, void* stats,
+                                      void* dk_part, void* dv_part, int B, int S, int Tk,
+                                      int H, int K, int hd, int causal, int q_off,
+                                      void* stream) {
+  if (B <= 0 || S <= 0 || Tk <= 0 || H <= 0 || K <= 0 || H % K != 0 || q_off < 0 ||
+      ((dk_part == nullptr || dv_part == nullptr) != (H == K)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* sts = static_cast<float*>(stats);
+  float* pk = static_cast<float*>(dk_part);
+  float* pv = static_cast<float*>(dv_part);
+  const int off = causal ? q_off : 0;
+  switch (hd) {
+    case 32:
+      return launch_bwd<32>(q, k, v, o, dout, l, dq, dk, dv, sts, pk, pv, B, S, Tk, H, K,
+                            causal, off, st);
+    case 64:
+      return launch_bwd<64>(q, k, v, o, dout, l, dq, dk, dv, sts, pk, pv, B, S, Tk, H, K,
+                            causal, off, st);
+    case 128:
+      return launch_bwd<128>(q, k, v, o, dout, l, dq, dk, dv, sts, pk, pv, B, S, Tk, H, K,
+                             causal, off, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The row count of k1_flash_attention_bwd's stats scratch for S queries.
+extern "C" int k1_bwd_stats_rows(int S) { return bwd_stats_rows(S); }
 
 extern "C" const char* k1_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

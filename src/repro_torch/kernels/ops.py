@@ -15,10 +15,12 @@ counted, nor is an empty batch's (a rank that holds no row of a
 micro-batch), for which the kernel is not launched.
 
 A CUDA attention call always goes through ``FlashAttentionFn`` (K1
-forward, tensor-op backward) and a CUDA SSD scan through ``SSDScanFn``
-(K2 forward, the autograd of ``ssd_chunked`` as backward). Each records
-a graph only when a gradient is taken (grad mode on and an input that
-requires grad); its backward launches no kernel.
+forward; K1's backward kernel for bf16 at hd 32, 64 and 128, counted in
+``attention.bwd_launches``, and ``ref.attention_bwd``'s tensor ops for
+f32 and hd 256, counted in ``attention.bwd_plain``) and a CUDA SSD scan
+through ``SSDScanFn`` (K2 forward, the autograd of ``ssd_chunked`` as
+backward, which launches no kernel). Each records a graph only when a
+gradient is taken (grad mode on and an input that requires grad).
 """
 from __future__ import annotations
 
@@ -53,6 +55,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 attention.launches = 0
+attention.bwd_launches = 0   # backwards through K1's backward kernel (CUDA)
+attention.bwd_plain = 0      # backwards through ``ref.attention_bwd`` (CUDA: f32, hd 256)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

@@ -68,9 +68,11 @@ def attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
 def attention_bwd(q, k, v, out, dout, *, causal: bool = True, q_offset: int = 0):
     """Gradients of ``attention_ref`` -> (dq, dk, dv) in q's, k's and v's dtypes.
 
-    The backward of K1 under ``kernels.flash_attention.FlashAttentionFn``:
-    the counterpart of what XLA's autodiff computes for the JAX model's
-    attention, written out in tensor ops (the Pallas kernel has no
+    The plain version of K1's backward kernel (``kernels.flash_attention.
+    flash_attention_bwd``), which the card holds it to, and the backward
+    that ``FlashAttentionFn`` takes where the kernel does not (f32, hd
+    256): the counterpart of what XLA's autodiff computes for the JAX
+    model's attention, written out in tensor ops (the Pallas kernel has no
     backward). ``out`` is the forward's output and ``dout`` its gradient,
     both (B, S, H, hd); k/v are (B, T, K, hd), H % K == 0; ``q_offset``
     as in ``attention_ref``. In f32, with P recomputed from q and k under

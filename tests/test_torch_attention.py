@@ -22,7 +22,16 @@ K1's backward (``ref.attention_bwd``, the backward of
 ``repeat_kv``'d inputs (dK and dV summed over each KV head's group);
 in bf16 to 5e-2 against autograd, the tolerance ``chip_smoke.py`` uses
 on the card (the backward reads the forward's bf16-rounded output in
-rowsum(dO * O), where autograd uses the f32 one).
+rowsum(dO * O), where autograd uses the f32 one). ``ref.attention_bwd``
+is the plain version that the card holds K1's backward kernel to, and
+the backward that f32 and hd 256 take there.
+
+K1's backward kernel on meta tensors: its operator ``repro_torch::k1_bwd``
+shapes dq, dk and dv across GQA groups, S != T and query offsets and
+counts the five products of a flash backward over the live pairs
+(``flash_attention.bwd_flops``); ``FlashAttentionFn`` sends bf16 at hd
+32, 64 and 128 to it (the forward then hands K1 a log-sum-exp to write)
+and f32 and hd 256 to ``ref.attention_bwd``.
 """
 import dataclasses
 
@@ -44,6 +53,7 @@ from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops, ref as tref  # noqa: E402
 from repro_torch.models import attention as ta  # noqa: E402
 from repro_torch.models.layers import RunConfig  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -429,3 +439,103 @@ def test_cpu_attention_under_grad_is_the_plain_autograd():
                     _autograd_grads(qt, kt, vt, dt, True)):
         assert torch.equal(g, e)
 
+
+
+# ---------------------------------------------------------------------------
+# K1's backward kernel on meta tensors: its operator's shapes, FLOPs, dispatch
+# ---------------------------------------------------------------------------
+META_BWD_CASES = [
+    # (B, S, T, H, K, hd, causal, q_offset)
+    (4, 2048, 2048, 12, 2, 128, True, 0),    # qwen2-1.5b's train shape
+    (2, 20, 40, 14, 7, 64, True, 0),         # S < T, G = 2
+    (2, 40, 20, 14, 2, 32, True, 0),         # S > T: rows past T see every key
+    (2, 100, 333, 32, 8, 128, False, 0),     # the vlm's cross-attention
+    (2, 128, 512, 14, 2, 64, True, 384),     # a "seq" rank's row block
+    (1, 77, 130, 10, 2, 128, True, 50),      # G = 5 at an offset
+]
+
+
+def _meta_bwd_inputs(B, S, T, H, K, hd, dtype=torch.bfloat16):
+    q, out, dout = (torch.empty((B, S, H, hd), dtype=dtype, device="meta") for _ in "qod")
+    k, v = (torch.empty((B, T, K, hd), dtype=dtype, device="meta") for _ in "kv")
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="meta")
+    return q, k, v, out, dout, lse
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,q_offset", META_BWD_CASES)
+def test_k1_bwd_fake_shapes_the_gradients(B, S, T, H, K, hd, causal, q_offset):
+    from torch.utils.flop_counter import FlopCounterMode
+    args = _meta_bwd_inputs(B, S, T, H, K, hd)
+    with FlopCounterMode(display=False) as counter:
+        dq, dk, dv = torch.ops.repro_torch.k1_bwd(*args, causal, q_offset)
+    assert [(tuple(t.shape), t.dtype, t.device.type) for t in (dq, dk, dv)] == [
+        ((B, S, H, hd), torch.bfloat16, "meta"), ((B, T, K, hd), torch.bfloat16, "meta"),
+        ((B, T, K, hd), torch.bfloat16, "meta")]
+    # the five products of a flash backward over the live (query, key) pairs
+    pairs = tfa.live_pairs(S, T, causal, q_offset)
+    expect = 5 * 2 * B * H * hd * pairs
+    assert expect == tfa.bwd_flops(B, S, T, H, hd, causal, q_offset) \
+        == 5 * tfa.flops(B, S, T, H, hd, causal, q_offset) // 2
+    assert counter.get_flop_counts()["Global"] == {torch.ops.repro_torch.k1_bwd: expect}
+
+
+def test_k1_bwd_refuses_what_its_kernel_does_not_take():
+    q, k, v, out, dout, lse = _meta_bwd_inputs(1, 16, 16, 4, 2, 64)
+    f32 = [t.float() for t in (q, k, v, out, dout)]
+    with pytest.raises(ValueError, match="bfloat16"):
+        torch.ops.repro_torch.k1_bwd(*f32, lse, True, 0)
+    wide = _meta_bwd_inputs(1, 16, 16, 4, 2, 256)
+    with pytest.raises(ValueError, match="head_dim"):
+        torch.ops.repro_torch.k1_bwd(*wide, True, 0)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        torch.ops.repro_torch.k1_bwd(q, k, v, out, dout, lse[:, :, :8], True, 0)
+    with pytest.raises(ValueError, match="q_offset"):
+        torch.ops.repro_torch.k1_bwd(q, k, v, out, dout, lse, True, 1)
+    z = torch.zeros((1, 16, 4, 64), dtype=torch.bfloat16)   # no CPU implementation
+    with pytest.raises(NotImplementedError, match="CPU"):
+        torch.ops.repro_torch.k1_bwd(z, z[:, :, :2], z[:, :, :2], z, z, torch.zeros(1, 4, 16),
+                                     True, 0)
+
+
+class _OpLog(TorchDispatchMode):
+    """The (operator, number of arguments) of every call under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls.append((str(func.overloadpacket), len(args) + len(kwargs or {})))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    ("bfloat16", 32, True), ("bfloat16", 64, True), ("bfloat16", 128, True),
+    ("bfloat16", 256, False), ("float32", 64, False), ("float32", 128, False)])
+def test_flash_attention_fn_backward_dispatch_on_meta(dtype, hd, kernel):
+    """bf16 at hd 32, 64, 128: the forward writes the log-sum-exp (k1_fwd's
+    sixth argument) and the backward is k1_bwd; f32 and hd 256: the forward
+    takes five arguments and the backward is ``ref.attention_bwd``'s tensor
+    ops. No launch and no count on meta; without a gradient no LSE."""
+    dt = getattr(torch, dtype)
+    q = torch.empty((2, 40, 14, hd), dtype=dt, device="meta", requires_grad=True)
+    k, v = (torch.empty((2, 40, 2, hd), dtype=dt, device="meta", requires_grad=True)
+            for _ in "kv")
+    counts = (ops.attention.launches, ops.attention.bwd_launches, ops.attention.bwd_plain)
+    with _OpLog() as log:
+        out = ops.attention(q, k, v, causal=True)
+        forward = list(log.calls)
+        grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
+    names = [n for n, _ in log.calls]
+    assert [(tuple(g.shape), g.dtype) for g in grads] == [
+        (tuple(t.shape), dt) for t in (q, k, v)]
+    assert ("repro_torch.k1_fwd", 6 if kernel else 5) in forward
+    assert ("repro_torch.k1_bwd" in names) == kernel
+    assert ("aten.bmm" in names) != kernel          # the plain backward's einsums
+    assert names.count("repro_torch.k1_fwd") == 1
+    assert (ops.attention.launches, ops.attention.bwd_launches,
+            ops.attention.bwd_plain) == counts
+    with _OpLog() as log:
+        ops.attention(q.detach(), k.detach(), v.detach(), causal=True)
+    assert ("repro_torch.k1_fwd", 5) in log.calls
+    assert tfa.backward_kernel_takes(q) == kernel

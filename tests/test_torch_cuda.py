@@ -14,11 +14,17 @@ bf16 x with bf16 B/C runs its tensor-core scan, whose f32 state is held
 to f32's 2e-3 against ``ssd_ref`` as well.
 
 Training: ``ops.attention`` on CUDA tensors that require grad goes
-through ``FlashAttentionFn`` (K1 forward, ``ref.attention_bwd``
-backward); its dq, dk, dv are held against autograd through the plain
-version (f32 1e-4, bf16 5e-2, as in ``chip_smoke.py``) and against
-``attention_bwd`` on K1's own output (1e-6: the same function of the
-same tensors). ``ops.ssd`` under a gradient goes through ``SSDScanFn``
+through ``FlashAttentionFn`` (K1 forward; K1's backward kernel for bf16
+at hd 32, 64 and 128, ``ref.attention_bwd`` for f32 and hd 256); its dq,
+dk, dv are held against autograd through the plain version (f32 1e-4,
+bf16 5e-2, as in ``chip_smoke.py``) and against ``attention_bwd`` on
+K1's own output: f32 1e-6 (the same function of the same tensors), bf16
+5e-2 of each element and 1e-2 of each tensor's norm (the kernel rounds P
+and dS to bf16 for the tensor cores, as the forward rounds P), also at
+query offsets. The kernel's gradients are
+bit-equal from call to call, the log-sum-exp the forward writes for it
+is that of the scaled scores (1e-5), and the counts
+``ops.attention.bwd_launches`` / ``bwd_plain`` show which backward ran. ``ops.ssd`` under a gradient goes through ``SSDScanFn``
 (K2 forward, the autograd of ``ssd_chunked`` as backward); its
 gradients are held against autograd through ``ssd_chunked`` (1e-6 of
 the largest value) and ``ref.ssd_ref`` (f32 2e-3, bf16 5e-2), and a
@@ -407,16 +413,112 @@ def test_flash_attention_fn_grads_match_plain(card, B, S, T, H, K, hd, dtype, ca
     out = ops.attention(q, k, v, causal=causal)
     assert ops.attention.launches == before + 1 and out.grad_fn is not None
     got = torch.autograd.grad(out, (q, k, v), dout)
-    assert ops.attention.launches == before + 1          # the backward launches no K1
+    assert ops.attention.launches == before + 1          # the backward launches no K1 forward
     direct = ref.attention_bwd(q.detach(), k.detach(), v.detach(), out.detach(), dout,
                                causal=causal)
     plain = torch.autograd.grad(ref.attention_ref(q, k, v, causal=causal), (q, k, v), dout)
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == "float32" else 5e-2
+    # f32 runs attention_bwd itself; bf16 the kernel, held at bf16's tolerance
+    # and, as a whole tensor, by its relative norm error
+    direct_tol = 1e-6 if dtype == "float32" else 5e-2
     for g, d, e in zip(got, direct, plain):
         assert g.dtype == dt and g.abs().sum() > 0
-        torch.testing.assert_close(g, d, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(g.float(), d.float(), atol=direct_tol, rtol=direct_tol)
+        assert dtype == "float32" or _rel_norm_err(g, d) <= BWD_REL_NORM_TOL
         torch.testing.assert_close(g.float(), e.float(), atol=tol, rtol=tol)
+
+
+# the bf16 backward kernel's dq, dk, dv against attention_bwd, each by
+# ||g - e|| / ||e|| (chip_smoke.py's K1_BWD_REL_TOL): bf16's rounding of P,
+# dS and the outputs gives a few 1e-3; an element-wise 5e-2 alone would pass
+# a kernel 10% wrong on most rows
+BWD_REL_NORM_TOL = 1e-2
+
+
+def _rel_norm_err(g, e) -> float:
+    return float((g.float() - e.float()).norm() / e.float().norm())
+
+
+def _grad_inputs(card, B, S, T, H, K, hd, dtype, seed=2):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=gen, device=card).to(dtype).requires_grad_(True)
+    k, v = (torch.randn((B, T, K, hd), generator=gen, device=card).to(dtype).requires_grad_(True)
+            for _ in range(2))
+    dout = torch.randn((B, S, H, hd), generator=gen, device=card).to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,q_offset", [
+    (2, 128, 512, 14, 2, 64, 384),      # qwen2-0.5b's last row block at tp=4
+    (2, 100, 333, 12, 2, 128, 200),     # a ragged block inside T
+    (1, 64, 130, 10, 2, 128, 66)])      # G = 5, ragged T
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_fn_grads_at_a_q_offset_match_plain(card, B, S, T, H, K, hd,
+                                                            q_offset, dtype):
+    dt = TORCH_DTYPE[dtype]
+    q, k, v, dout = _grad_inputs(card, B, S, T, H, K, hd, dt)
+    out = ops.attention(q, k, v, causal=True, q_offset=q_offset)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    direct = ref.attention_bwd(q.detach(), k.detach(), v.detach(), out.detach(), dout,
+                               causal=True, q_offset=q_offset)
+    plain = torch.autograd.grad(ref.attention_ref(q, k, v, causal=True, q_offset=q_offset),
+                                (q, k, v), dout)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    direct_tol = 1e-6 if dtype == "float32" else 5e-2
+    for g, d, e in zip(got, direct, plain):
+        assert g.dtype == dt and g.abs().sum() > 0
+        torch.testing.assert_close(g.float(), d.float(), atol=direct_tol, rtol=direct_tol)
+        assert dtype == "float32" or _rel_norm_err(g, d) <= BWD_REL_NORM_TOL
+        torch.testing.assert_close(g.float(), e.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [(4, 2048, 2048, 12, 2, 128, True),
+                                                 (2, 100, 333, 32, 8, 128, False),
+                                                 (2, 200, 200, 24, 24, 64, True)])
+def test_k1_backward_kernel_is_bit_equal_from_call_to_call(card, B, S, T, H, K, hd, causal):
+    """dQ comes from its own pass over q tiles and dK, dV of a KV head from
+    a sum in head order: no atomics, so two backwards agree bit for bit."""
+    q, k, v, dout = _grad_inputs(card, B, S, T, H, K, hd, torch.bfloat16)
+    first = torch.autograd.grad(ops.attention(q, k, v, causal=causal), (q, k, v), dout)
+    second = torch.autograd.grad(ops.attention(q, k, v, causal=causal), (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,causal,q_offset", [(200, 200, True, 0), (100, 333, False, 0),
+                                                 (128, 512, True, 384), (300, 100, True, 0)])
+def test_k1_writes_the_log_sum_exp_of_the_scaled_scores(card, S, T, causal, q_offset):
+    from repro_torch.kernels import flash_attention as fa
+    B, H, K, hd = 2, 14, 2, 64
+    q, k, v, _ = (t.detach() for t in _grad_inputs(card, B, S, T, H, K, hd, torch.bfloat16))
+    lse = torch.full((B, H, S), float("nan"), device=card)
+    out = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset, lse=lse)
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset))
+    s = torch.einsum("bshd,bthd->bhst", q.float(), ref.repeat_kv(k, H).float()) / hd ** 0.5
+    if causal:
+        s = torch.where(ref.causal_mask(S, T, q_offset, card), s, torch.full_like(s, -1e30))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_backward_counts_show_which_backward_ran(card):
+    """bf16 at hd 32, 64, 128 takes the kernel; f32 and hd 256 the plain
+    backward; neither launches a K1 forward."""
+    for dtype, hd, kernel in ((torch.bfloat16, 32, True), (torch.bfloat16, 64, True),
+                              (torch.bfloat16, 128, True), (torch.bfloat16, 256, False),
+                              (torch.float32, 64, False), (torch.float32, 128, False)):
+        q, k, v, dout = _grad_inputs(card, 1, 70, 70, 4, 2, hd, dtype)
+        out = ops.attention(q, k, v, causal=True)
+        counts = (ops.attention.launches, ops.attention.bwd_launches, ops.attention.bwd_plain)
+        torch.autograd.grad(out, (q, k, v), dout)
+        assert (ops.attention.launches, ops.attention.bwd_launches,
+                ops.attention.bwd_plain) == (counts[0], counts[1] + kernel,
+                                             counts[2] + (not kernel)), (dtype, hd)
 
 
 @pytest.mark.cuda

@@ -14,9 +14,10 @@ count the matrix products. The attention term is reported apart: JAX's
 scores, 8 products of 2*B*H*S*T*hd a layer under remat (the forward, its
 recompute, 4 in the backward); the port's K1 counts only the live
 (query, key) pairs of the causal mask (``flash_attention.flops``) in the
-forward and its recompute, and its tensor-op backward
-(``ref.attention_bwd``) 5 full products (the scores again, dV, dP, dQ,
-dK). The totals agree within 10%. ``argument_bytes`` (the local shards
+forward and its recompute, and its backward kernel (``repro_torch::k1_bwd``,
+``flash_attention.bwd_flops``) the 5 products of a flash backward (the
+scores again, dV, dP, dQ, dK) over the same live pairs. The totals agree
+within 10%. ``argument_bytes`` (the local shards
 of the train state and the batch) equals JAX's ``argument_size_in_bytes``.
 
 The count of the port at 4 layers less its count at 2 equals 2 layers'
@@ -240,8 +241,8 @@ def _reckoned(layers: int) -> dict:
     two products each: 8 * tokens * params, less the recompute of each
     layer's last product, w2, which the checkpoint stops before: its output
     is needed by no backward), their attention (K1's causal forward twice,
-    the backward's 5 full products), and the tied head (forward and two
-    backward products: 6 * tokens * D * V / tp)."""
+    its backward kernel's 5 products over the same live pairs), and the tied
+    head (forward and two backward products: 6 * tokens * D * V / tp)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -254,7 +255,7 @@ def _reckoned(layers: int) -> dict:
     micro = 2                                      # dryrun.pick_grad_accum
     bl, hl = B // data // micro, H // tp
     attn = micro * layers * (2 * fa.flops(bl, S, S, hl, hd, True)
-                             + 5 * 2 * bl * hl * S * S * hd)
+                             + fa.bwd_flops(bl, S, S, hl, hd, True))
     head = 6 * tokens * d * cfg.vocab_padded // tp
     return {"linear": linear, "attention": attn, "head": head,
             "total": linear + attn + head}
@@ -271,8 +272,8 @@ def test_per_device_flops_match_hlo_analysis(parity):
     jax_attn = LAYERS * 8 * 2 * bl * hl * S * S * hd
     port_attn = _reckoned(LAYERS)["attention"]
     print(f"per-device FLOPs: JAX {jax_flops:.4e} (attention, all S x T scores, "
-          f"{jax_attn:.4e}), port {port_flops:.4e} (attention, K1 causal pairs + "
-          f"tensor-op backward, {port_attn:.4e}); rel diff "
+          f"{jax_attn:.4e}), port {port_flops:.4e} (attention, K1 causal pairs, forward "
+          f"and backward, {port_attn:.4e}); rel diff "
           f"{abs(port_flops - jax_flops) / jax_flops:.4f}")
     assert abs(port_flops - jax_flops) <= FLOPS_TOL * jax_flops
     assert abs((port_flops - port_attn) - (jax_flops - jax_attn)) <= \
@@ -280,6 +281,9 @@ def test_per_device_flops_match_hlo_analysis(parity):
     # K1: the forward and its remat recompute, each micro-batch (grad_accum 2)
     k1 = 2 * 2 * LAYERS * fa.flops(bl // 2, S, S, hl, hd, True)
     assert parity["port"][LAYERS]["flops_by_op"]["repro_torch.k1_fwd"] == k1
+    # its backward kernel, once a layer and micro-batch
+    assert parity["port"][LAYERS]["flops_by_op"]["repro_torch.k1_bwd"] == \
+        2 * LAYERS * fa.bwd_flops(bl // 2, S, S, hl, hd, True)
 
 
 def test_argument_bytes_equal_jax(parity):

@@ -247,6 +247,24 @@ def test_expected_train_launches_count_cross_blocks_once(chip_smoke):
     assert chip_smoke.cut_depth(VLM, 5)[1] == f"{VLM} (5 of 40 layers)"
 
 
+def test_expected_train_backwards_count_each_attention_call_once(chip_smoke):
+    """K1's backwards a train step: one per attention call of the forward,
+    remat or not; K1's backward kernel in bf16 at hd 64 and 128 (qwen2-1.5b
+    28 and 0, the benchmark's train cell), ``ref.attention_bwd`` at
+    gemma-7b's hd 256 and in f32; phase 9 times the kernel at the train
+    cell's shape first."""
+    full = chip_smoke.train_rc("cpu", remat=True, remat_policy="full")
+    qwen = get_config("qwen2-1.5b")
+    assert chip_smoke.expected_train_backwards(qwen, full) == {"kernel": 28, "plain": 0}
+    assert chip_smoke.expected_train_backwards(qwen, RunConfig(compute_dtype=torch.float32)) \
+        == {"kernel": 0, "plain": 28}
+    assert chip_smoke.expected_train_backwards(get_config(VLM), full) == {"kernel": 48,
+                                                                        "plain": 0}
+    gemma = chip_smoke.cut_depth(chip_smoke.GEMMA_ARCH, chip_smoke.TRAIN_9_LAYERS)[0]
+    assert chip_smoke.expected_train_backwards(gemma, full) == {"kernel": 0, "plain": 4}
+    assert next(iter(chip_smoke.K1_BWD_SHAPES.values())) == (4, 2048, 2048, 12, 2, 128, True)
+
+
 def test_chip_smoke_phase_8_rehearses_on_cpu(chip_smoke):
     """The train run and the f32 kernels-vs-plain gradients of phase 8 at the
     reduced sizes: frontend batches, the gates at CROSS_GATE, no launch on
