@@ -25,10 +25,20 @@ from podbench.reference import model as ref_model
 CONTROLS = ("fp8",)     # what ``run(controls=...)`` can put in the program's place
 
 
-def cache_leaves(cache) -> dict:
-    """The program's cache as the reference lays it out: "k" and "v",
-    each stacked by layer."""
-    return {k: cache[k] for k in ("k", "v")}
+def cache_leaves(cache, prefix: str = "") -> dict:
+    """Every tensor leaf of the program's cache, by its path: "k", "v",
+    "ssm/ssd", "ssm/conv_x", ... (a named tuple's fields by name). The
+    position counter, a host number, is left out."""
+    import torch
+    out = {}
+    for k, v in cache.items():
+        if torch.is_tensor(v):
+            out[prefix + k] = v
+        elif isinstance(v, dict) or hasattr(v, "_asdict"):
+            out.update(cache_leaves(v if isinstance(v, dict) else v._asdict(), f"{prefix}{k}/"))
+        elif not isinstance(v, (int, float)):
+            raise TypeError(f"cache leaf {prefix + k!r} is a {type(v).__name__}")
+    return out
 
 
 def p95(values) -> float:
@@ -80,12 +90,15 @@ def tally(cell, seed: int, meta, feed, sampled, device, mm) -> compare.PrefillTa
     prompts from the seed's weights in precision ``mm``."""
     import torch
     t = compare.PrefillTally()
-    params = weights.make(meta, cell.arch["n_layers"], seed, device)
+    params = weights.make(meta, cell.config, seed, device)
     with torch.no_grad():
         for i, last, cache, served in sampled:
             tokens = feed.batch(i)["tokens"]
             ref_last, ref_cache = ref_model.prefill(params, cell.arch, tokens, mm,
                                                     cell.config["reference"])
+            if set(cache) != set(ref_cache):
+                raise KeyError(f"the cache's leaves {sorted(cache)} are not the "
+                               f"reference's {sorted(ref_cache)}")
             t.add("logits", last, ref_last)
             for name, got in cache.items():
                 t.add(name, got, ref_cache[name])
@@ -99,7 +112,7 @@ def control_outputs(cell, seed: int, meta, feed, sampled, device, control: str) 
     with fp8 products in the program's place."""
     import torch
     assert control in CONTROLS
-    params = weights.make(meta, cell.arch["n_layers"], seed, device)
+    params = weights.make(meta, cell.config, seed, device)
     out = []
     with torch.no_grad():
         for i, *_ in sampled:
@@ -115,7 +128,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t0: float,
     program's place against the reference (``outcome["controls"]``)."""
     step, meta = build(cell, device)
     session.mark("build")
-    params = weights.make(meta, cell.arch["n_layers"], seed, device)
+    params = weights.make(meta, cell.config, seed, device)
     vocab = cell.arch["vocab_size"]
     feed = traffic.Feed(cell.mix, vocab, seed, device)
     session.sync(device)

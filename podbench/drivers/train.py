@@ -34,7 +34,7 @@ def _norms(tree) -> dict:
 def _update_norms(params, meta, cell, seed, device) -> dict:
     """{leaf: |p - p0|}, p0 the seed's weights made again."""
     import torch
-    p0 = weights.flatten(weights.make(meta, cell.arch["n_layers"], seed, device))
+    p0 = weights.flatten(weights.make(meta, cell.config, seed, device))
     return {k: float(torch.linalg.vector_norm(v.float() - p0[k].float()))
             for k, v in weights.flatten(params).items()}
 
@@ -55,7 +55,7 @@ def reference_steps(cell, seed: int, meta, feed, device, control=None) -> dict:
     import torch
     mm, rows = _reference(cell, control)
     opt = cell.workload["optimizer"]
-    made = weights.flatten(weights.make(meta, cell.arch["n_layers"], seed, device))
+    made = weights.flatten(weights.make(meta, cell.config, seed, device))
     P = {k: v.float().clone().requires_grad_(True) for k, v in made.items()}
     del made
     leaves = list(P.values())
@@ -141,7 +141,7 @@ def setup(cell, seed: int, device):
     step, meta = build(cell, device)
     session.mark("build")
     feed = traffic.Feed(cell.mix, cell.arch["vocab_size"], seed, device)
-    state = init_state(weights.make(meta.params, cell.arch["n_layers"], seed, device))
+    state = init_state(weights.make(meta.params, cell.config, seed, device))
     session.sync(device)
     session.mark("weights")
     b1 = cell.workload["optimizer"]["b1"]

@@ -1,5 +1,6 @@
 """Device ms a train step spends under the autograd nodes of K1's
-backward (``FlashAttentionFnBackward``: the plain tensor-op backward)."""
+backward (``FlashAttentionFnBackward``: K1's backward kernels, the plain
+tensor-op backward where the kernels take no such shape or dtype)."""
 
 
 def read(view):

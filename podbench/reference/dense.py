@@ -12,10 +12,12 @@ from torch.utils.checkpoint import checkpoint
 from podbench.reference import common
 
 
-def hidden(params, arch, tokens, mm, *, q_block: int, remat: bool = False, on_kv=None):
-    """The residual stream after the last block, (B, S, D) float32.
-    ``remat``: each block checkpointed, recomputed in the backward.
-    ``on_kv(layer, k, v)`` sees each layer's rotated k and v."""
+def hidden(params, arch, tokens, mm, run: dict, *, remat: bool = False, on_kv=None):
+    """The residual stream after the last block, (B, S, D) float32, the
+    queries in blocks of ``run["q_block"]`` rows. ``remat``: each block
+    checkpointed, recomputed in the backward. ``on_kv(layer, k, v)`` sees
+    each layer's rotated k and v."""
+    q_block = run["q_block"]
     h = params["embed"][tokens.long()].float()
     for i, bp in enumerate(common.layers(params["blocks"], arch["n_layers"])):
         kv = None if on_kv is None else (lambda k, v, i=i: on_kv(i, k, v))

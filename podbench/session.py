@@ -24,13 +24,22 @@ def phases(t0: float) -> str:
 
 def run_config(section: dict, device: str):
     """The program's ``RunConfig`` from a configuration's ``train`` or
-    ``serve`` section."""
+    ``serve`` section: every field the section names (a dtype by its
+    name in ``torch``), the others at their defaults. A key that is no
+    field, or a field no JSON value can give (the device, the sharding
+    hooks), raises."""
+    import dataclasses
+
     import torch
     from repro_torch.models import RunConfig
-    return RunConfig(param_dtype=getattr(torch, section["param_dtype"]),
-                     compute_dtype=getattr(torch, section["compute_dtype"]),
-                     device=device, remat=section.get("remat", False),
-                     remat_policy=section.get("remat_policy", "none"))
+    fields = {f.name for f in dataclasses.fields(RunConfig)} - {"device", "constrain",
+                                                                 "fsdp_gather"}
+    unknown = set(section) - fields
+    if unknown:
+        raise KeyError(f"no RunConfig field for {sorted(unknown)}; the fields are "
+                       f"{sorted(fields)}")
+    kw = {k: getattr(torch, v) if k.endswith("_dtype") else v for k, v in section.items()}
+    return RunConfig(device=device, **kw)
 
 
 def sync(device: str) -> None:

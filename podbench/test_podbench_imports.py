@@ -20,6 +20,7 @@ print(json.dumps(run.forbidden_modules()))
 REFERENCE_ONLY = """
 import json, sys
 import podbench.reference.model, podbench.reference.dense, podbench.reference.adamw
+import podbench.reference.ssm
 print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))
 """
 

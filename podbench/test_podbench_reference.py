@@ -29,7 +29,7 @@ def test_forward_flops_match_the_counter():
     cell = tiny_cell("qwen2-1.5b-prefill")
     arch, S = cell.arch, cell.mix["seq_len"]
     _, meta = prefill.build(cell, "cpu")
-    params = weights.make(meta, arch["n_layers"], 5, "cpu")
+    params = weights.make(meta, cell.config, 5, "cpu")
     tokens = torch.randint(0, arch["vocab_size"], (2, S))
     run = {"q_block": S}                           # one query block: every key scored
     with FlopCounterMode(display=False) as counter:

@@ -47,7 +47,7 @@ def _host_ops(seed: int) -> float:
     cell.workload = dict(cell.workload, trace_steps=1)
     step, meta = train.build(cell, "cpu")
     from repro_torch.optim.adamw import init_state
-    state = [init_state(weights.make(meta.params, cell.arch["n_layers"], seed, "cpu"))]
+    state = [init_state(weights.make(meta.params, cell.config, seed, "cpu"))]
     feed = traffic.Feed(cell.mix, cell.arch["vocab_size"], seed, "cpu")
 
     def work(n):
